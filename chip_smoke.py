@@ -7,9 +7,12 @@ Phases (any failure raises, and the script exits non-zero):
 1. device: require a CUDA card; print its name and power limit;
 2. build every kernel under freerl_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch twin on the card, bit for bit,
-   at several shapes; then the kernel's, the twin's and the library
-   yardstick's times at the main path's shape (CUDA events over a CUDA
-   graph of back-to-back calls, so host overhead is left out);
+   at several shapes and inputs; then, at the main path's shape, the
+   kernel's, the twin's and the library yardstick's device times (CUDA
+   events over a CUDA graph of back-to-back calls, so host overhead is left
+   out) with L2 warm and, for the kernel, cold; the empty-kernel floor of
+   one launch on the kernel's grid; and the eager call times of the kernel
+   and the yardstick, host overhead included;
 4. the port on the card against the port on the CPU at small sizes
    (LunarLander steps, DQN updates, the PER buffer);
 5. the main path: train_offpolicy on LunarLander-v2 with
@@ -24,6 +27,7 @@ It needs no network and builds everything from the checkout.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -50,15 +54,19 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def build_tree(cap: int, seed: int = 0, spike_leaf: int | None = None):
-    """A sum-tree over uniform random leaves (and optionally one leaf
-    raised by 1000), summed level by level in f32."""
+def build_tree(cap: int, seed: int = 0, spike_leaf: int | None = None,
+               empty_half: bool = False):
+    """A sum-tree over uniform random leaves (optionally one leaf raised by
+    1000, or the upper half of the leaves zero, as in a half-filled
+    buffer), summed level by level in f32."""
     depth = cap.bit_length() - 1
     rng = np.random.RandomState(seed)
     tree = np.zeros(2 * cap, np.float32)
     tree[cap:] = rng.rand(cap)
     if spike_leaf is not None:
         tree[cap + spike_leaf] += 1000.0
+    if empty_half:
+        tree[cap + cap // 2:] = 0.0
     for lvl in range(depth - 1, -1, -1):
         lo, hi = 1 << lvl, 1 << (lvl + 1)
         tree[lo:hi] = tree[2 * lo: 2 * hi: 2] + tree[2 * lo + 1: 2 * hi: 2]
@@ -71,6 +79,21 @@ def stratified_u(tree: torch.Tensor, batch: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(
         ((np.arange(batch) + r) * total / batch).astype(np.float32)
     ).cuda()
+
+
+def masses(tree: torch.Tensor, batch: int, kind: str, seed: int):
+    """The masses of one check: stratified over the root's total, all zero,
+    or at and above the total (the last one +inf when batch > 1), where
+    every step goes right and the clip holds the result."""
+    if kind == "stratified":
+        return stratified_u(tree, batch, seed)
+    if kind == "zero":
+        return torch.zeros(batch, device="cuda")
+    total = np.float32(tree[1].item())
+    u = (total * (1 + np.arange(batch) / batch)).astype(np.float32)
+    if batch > 1:
+        u[-1] = np.inf
+    return torch.from_numpy(u).cuda()
 
 
 def device_ms(fn, calls: int = 100, replays: int = 20) -> float:
@@ -98,6 +121,23 @@ def device_ms(fn, calls: int = 100, replays: int = 20) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def cold_ms(fn, flush_bytes: int = 128 << 20) -> tuple[float, float]:
+    """Device time per call with L2 cold: each call is preceded in the graph
+    by a write of ``flush_bytes`` (more than the 50 MB L2), and the flush's
+    own time is taken off. Returns (time per call, flush time)."""
+    buf = torch.empty(flush_bytes // 4, device="cuda")
+
+    def flush():
+        buf.fill_(1.0)
+
+    def both():
+        flush()
+        fn()
+
+    flush_ms = device_ms(flush, calls=50, replays=10)
+    return device_ms(both, calls=50, replays=10) - flush_ms, flush_ms
+
+
 def eager_ms(fn, calls: int = 200) -> float:
     """Time per call as the main path makes it: back-to-back eager calls,
     host overhead included."""
@@ -114,6 +154,17 @@ def eager_ms(fn, calls: int = 200) -> float:
     return start.elapsed_time(end) / calls
 
 
+def eager_medians(fns: dict, rounds: int = 6, calls: int = 1000) -> dict:
+    """``eager_ms`` of each function, taken in ``rounds`` rounds that
+    alternate the order (the host's clock drifts within a call); returns
+    the median of each."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(eager_ms(fns[name], calls))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 # ---------------------------------------------------------------------------
 def phase_build():
     from freerl_tpu_torch.ops import _build
@@ -127,46 +178,90 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
+SUMTREE_CAP_POWS = (0, 1, 3, 8, 13, 14, 17, 20, 21)
+SUMTREE_BATCHES = (1, 255, 256, 4096)
+SUMTREE_TREES = ("uniform", "spike", "empty_half")
+SUMTREE_MASSES = ("stratified", "zero", "over_total")
+
+
+def sumtree_cases():
+    """Yield (label, spike leaf or None, tree, depth, cap, u) for every
+    check of the descent."""
+    for cap_pow in SUMTREE_CAP_POWS:
+        cap = 1 << cap_pow
+        for kind in SUMTREE_TREES:
+            spike = 77 % cap if kind == "spike" else None
+            tree, depth = build_tree(cap, seed=cap_pow, spike_leaf=spike,
+                                     empty_half=kind == "empty_half")
+            for batch in SUMTREE_BATCHES:
+                for mass in SUMTREE_MASSES:
+                    u = masses(tree, batch, mass, seed=batch + cap_pow)
+                    yield (f"cap 2^{cap_pow}, {kind} tree, B={batch}, "
+                           f"{mass} masses",
+                           spike if mass == "stratified" else None,
+                           tree, depth, cap, u)
+
+
+def floor_launcher(batch: int):
+    """A call that launches the kernel library's empty kernel on the
+    descent's grid for ``batch`` samples, on the current stream: the launch
+    floor the descent is timed against."""
+    from freerl_tpu_torch.ops import _build
+
+    fn = _build.load("sumtree_descend").sumtree_descend_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def empty():
+        if fn(batch, torch._C._cuda_getCurrentRawStream(0)):
+            raise RuntimeError("sumtree_descend_floor_launch failed")
+    return empty
+
+
 def phase_sumtree():
     from freerl_tpu_torch.ops import sumtree
 
-    worst = 0
-    for cap_pow in (8, 14, 17, 20):
-        cap = 1 << cap_pow
-        for spike in (None, 77):
-            tree, depth = build_tree(cap, seed=cap_pow, spike_leaf=spike)
-            for batch in (256, 4096):
-                u = stratified_u(tree, batch, seed=batch + cap_pow)
-                out = sumtree.sumtree_descend(tree, u, depth, cap)
-                ref = sumtree.sumtree_descend_ref(tree, u, depth, cap)
-                torch.cuda.synchronize()
-                if not torch.equal(out, ref):
-                    bad = int((out != ref).sum())
-                    raise AssertionError(
-                        f"sumtree_descend differs from its twin at cap "
-                        f"2^{cap_pow}, B={batch}, spike={spike}: {bad} rows"
-                    )
-                err = int((out.long() - ref.long()).abs().max())
-                worst = max(worst, err)
-                if spike is not None:
-                    want = batch * 1000.0 / float(tree[1])
-                    got = int((out == spike).sum())
-                    if want >= 20 and got < 0.5 * want:
-                        raise AssertionError(
-                            f"spiked leaf drawn {got} times, expected {want}")
-    log("[sumtree] kernel == twin bit for bit at caps 2^8/2^14/2^17/2^20, "
-        "B 256/4096, with and without a priority spike")
+    n, worst = 0, 0
+    for label, spike, tree, depth, cap, u in sumtree_cases():
+        out = sumtree.sumtree_descend(tree, u, depth, cap)
+        ref = sumtree.sumtree_descend_ref(tree, u, depth, cap)
+        worst = max(worst, int((out.long() - ref.long()).abs().max()))
+        if not torch.equal(out, ref):
+            bad = int((out != ref).sum())
+            raise AssertionError(
+                f"sumtree_descend differs from its twin at {label}: "
+                f"{bad} rows")
+        if spike is not None:
+            want = u.numel() * 1000.0 / float(tree[1])
+            got = int((out == spike).sum())
+            if want >= 20 and got < 0.5 * want:
+                raise AssertionError(
+                    f"spiked leaf drawn {got} times, expected {want}: {label}")
+        n += 1
+    log(f"[sumtree] kernel == twin bit for bit in {n} cases: caps "
+        f"2^{SUMTREE_CAP_POWS}, B {SUMTREE_BATCHES}, trees {SUMTREE_TREES}, "
+        f"masses {SUMTREE_MASSES}")
 
     # timing at the main path's shape
     cap = 1 << MAIN_CAP_POW
     tree, depth = build_tree(cap, seed=1)
     u = stratified_u(tree, MAIN_BATCH, seed=2)
     cdf = torch.cumsum(tree[cap:], 0)
-    kernel_ms = device_ms(lambda: sumtree.sumtree_descend(tree, u, depth, cap))
+
+    def kernel():
+        return sumtree.sumtree_descend(tree, u, depth, cap)
+
+    def library():
+        return torch.searchsorted(cdf, u)
+
+    kernel_ms = device_ms(kernel)
+    library_ms = device_ms(library)
+    floor_ms = device_ms(floor_launcher(MAIN_BATCH))
     plain_ms = device_ms(
         lambda: sumtree.sumtree_descend_ref(tree, u, depth, cap))
-    library_ms = device_ms(lambda: torch.searchsorted(cdf, u))
-    call_ms = eager_ms(lambda: sumtree.sumtree_descend(tree, u, depth, cap))
+    kernel_cold_ms, flush_ms = cold_ms(kernel)
+    eager = eager_medians({"kernel": kernel, "library": library})
+    call_ms, library_call_ms = eager["kernel"], eager["library"]
 
     # bound: the nodes this run's data reads (each left child once), u in,
     # idx out; two f32 operations (compare, subtract) per level and sample
@@ -185,24 +280,29 @@ def phase_sumtree():
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
     log(f"[sumtree] cap 2^{MAIN_CAP_POW}, B {MAIN_BATCH}: kernel "
-        f"{kernel_ms:.5f} ms (device, graph), {call_ms:.5f} ms (eager call), "
-        f"twin {plain_ms:.5f} ms, torch.searchsorted {library_ms:.5f} ms; "
-        f"{distinct} distinct nodes read, {n_bytes} B, {n_ops} f32 ops")
+        f"{kernel_ms:.6f} ms warm, {kernel_cold_ms:.6f} ms L2-cold (flush "
+        f"{flush_ms:.6f} ms taken off), empty-kernel floor {floor_ms:.6f} ms "
+        f"(device, graph); eager call {call_ms:.6f} ms (median of 6 "
+        f"alternating rounds); twin {plain_ms:.6f} ms; torch.searchsorted "
+        f"{library_ms:.6f} ms warm, {library_call_ms:.6f} ms eager; "
+        f"{distinct} distinct nodes read, "
+        f"{n_bytes} B, {n_ops} f32 ops")
     return {
         "name": "sumtree_descend",
         "route": "cuda",
         "source": "freerl_tpu_torch/csrc/sumtree_descend.cu",
         "replaces": "freerl_tpu/ops/sumtree_pallas.py:92",
-        "tpu_kernel": "freerl_tpu/ops/sumtree_pallas.py:92",
         "bit_exact": True,
         "max_abs_err": worst,
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
+        "cold_ms": kernel_cold_ms,
+        "floor_ms": floor_ms,
         "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
+        "library_call_ms": library_call_ms,
     }
 
 

@@ -36,14 +36,18 @@ def sumtree_descend_ref(tree: torch.Tensor, u: torch.Tensor, depth: int,
     return torch.clamp(node - capacity, 0, capacity - 1).to(torch.int32)
 
 
-def _lib():
-    lib = _build.load("sumtree_descend")
-    fn = lib.sumtree_descend_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+_launch = None   # the kernel's C entry point, resolved on first use
+
+
+def _resolve():
+    """Build or load the kernel once and cache its entry point with its
+    argument types set."""
+    global _launch
+    fn = _build.load("sumtree_descend").sumtree_descend_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _launch = fn
     return fn
 
 
@@ -52,14 +56,15 @@ def sumtree_descend(tree: torch.Tensor, u: torch.Tensor, depth: int,
     """Descend ``u`` (B,) through ``tree`` (2*capacity,); returns (B,) int32
     leaf indices. CPU tensors take the plain twin, CUDA tensors the kernel."""
     global launches
-    if tree.device.type == "cpu" and u.device.type == "cpu":
-        return sumtree_descend_ref(tree, u, depth, capacity)
-    if tree.device.type != "cuda" or u.device != tree.device:
+    if not (tree.is_cuda and u.is_cuda
+            and u.get_device() == (dev := tree.get_device())):
+        if tree.device.type == "cpu" and u.device.type == "cpu":
+            return sumtree_descend_ref(tree, u, depth, capacity)
         raise ValueError(
             f"sumtree_descend: tree on {tree.device} and u on {u.device}; "
             "both must be on the same CUDA device (or both on the CPU)"
         )
-    if tree.dtype != torch.float32 or u.dtype != torch.float32:
+    if tree.dtype is not torch.float32 or u.dtype is not torch.float32:
         raise TypeError(
             f"sumtree_descend: needs float32 tree and u, got {tree.dtype} "
             f"and {u.dtype}"
@@ -68,21 +73,23 @@ def sumtree_descend(tree: torch.Tensor, u: torch.Tensor, depth: int,
         raise ValueError("sumtree_descend: tree and u must be 1-D")
     if not (tree.is_contiguous() and u.is_contiguous()):
         raise ValueError("sumtree_descend: tree and u must be contiguous")
-    if capacity != 2 ** depth or tree.numel() != 2 * capacity:
+    if (not 0 <= depth <= 30 or capacity != 1 << depth
+            or tree.numel() != 2 * capacity):
         raise ValueError(
-            f"sumtree_descend: needs capacity == 2**depth and a tree of "
-            f"2*capacity nodes; got depth={depth}, capacity={capacity}, "
-            f"tree of {tree.numel()}"
+            f"sumtree_descend: needs capacity == 2**depth (depth 0..30) and a "
+            f"tree of 2*capacity nodes; got depth={depth}, "
+            f"capacity={capacity}, tree of {tree.numel()}"
         )
-    out = torch.empty(u.shape, dtype=torch.int32, device=u.device)
-    if u.numel() == 0:
+    out = torch.empty_like(u, dtype=torch.int32)
+    n = u.numel()
+    if n == 0:
         return out
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    rc = _lib()(tree.data_ptr(), u.data_ptr(), out.data_ptr(), u.numel(),
-                depth, capacity, stream)
+    launch = _launch or _resolve()
+    # the current stream's raw handle, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    rc = launch(tree.data_ptr(), u.data_ptr(), out.data_ptr(), n, depth,
+                capacity, stream)
     if rc != 0:
-        raise RuntimeError(
-            f"sumtree_descend_launch failed: CUDA error {rc}"
-        )
+        raise RuntimeError(f"sumtree_descend_launch failed: CUDA error {rc}")
     launches += 1
     return out

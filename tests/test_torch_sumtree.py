@@ -20,12 +20,16 @@ from freerl_tpu_torch.ops import sumtree
 torch.set_num_threads(1)
 
 
-def _build_tree(cap, seed=0, spike_leaf=None):
-    """numpy sum-tree, built as tests/test_pallas_ops.py builds it."""
+def _build_tree(cap, seed=0, spike_leaf=None, empty_half=False):
+    """numpy sum-tree, built as tests/test_pallas_ops.py builds it; with
+    ``empty_half`` the upper half of the leaves is zero (a half-filled
+    buffer)."""
     depth = cap.bit_length() - 1
     rng = np.random.RandomState(seed)
     tree = np.zeros(2 * cap)
     tree[cap:] = rng.rand(cap)
+    if empty_half:
+        tree[cap + cap // 2:] = 0.0
     for lvl in range(depth - 1, -1, -1):
         lo, hi = 1 << lvl, 1 << (lvl + 1)
         tree[lo:hi] = tree[2 * lo: 2 * hi: 2] + tree[2 * lo + 1: 2 * hi: 2]
@@ -42,6 +46,26 @@ def _build_tree(cap, seed=0, spike_leaf=None):
 def _stratified_u(tree, batch, seed):
     return ((np.arange(batch) + np.random.RandomState(seed).rand(batch))
             * float(tree[1]) / batch).astype(np.float32)
+
+
+def _masses(tree, batch, kind, seed):
+    """Stratified masses, all-zero masses, or masses at and above the root's
+    total (the last one +inf when batch > 1): every step goes right there,
+    and the final clip holds the index."""
+    if kind == "stratified":
+        return _stratified_u(tree, batch, seed)
+    if kind == "zero":
+        return np.zeros(batch, np.float32)
+    u = (tree[1] * (1 + np.arange(batch) / batch)).astype(np.float32)
+    if batch > 1:
+        u[-1] = np.inf
+    return u
+
+
+# (tree, masses) of the edge cases: zero masses, masses at or above the
+# total, and stratified masses over a tree whose upper half of leaves is zero
+EDGE_CASES = [("uniform", "zero"), ("uniform", "over_total"),
+              ("empty_half", "stratified"), ("empty_half", "over_total")]
 
 
 @pytest.mark.parametrize("cap_pow", [8, 14, 17])
@@ -65,6 +89,36 @@ def test_twin_bit_equal_to_pallas_kernel(cap_pow):
     assert out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(), ref_pallas)
     np.testing.assert_array_equal(out.numpy(), ref_xla)
+
+
+@pytest.mark.parametrize("cap_pow", [3, 13])
+@pytest.mark.parametrize("tree_kind,mass_kind", EDGE_CASES)
+def test_twin_bit_equal_to_pallas_edge_cases(cap_pow, tree_kind, mass_kind):
+    """The semantics the kernel is held to on the card, pinned on the CPU:
+    the twin equals the Pallas kernel (interpret mode) and the XLA loop."""
+    import jax.numpy as jnp
+
+    from freerl_tpu.ops.sumtree_pallas import (sumtree_descend as jax_descend,
+                                               sumtree_descend_xla)
+
+    cap = 1 << cap_pow
+    tree, depth = _build_tree(cap, seed=cap_pow,
+                              empty_half=tree_kind == "empty_half")
+    u = _masses(tree, 96, mass_kind, seed=3)
+    ref_xla = np.asarray(sumtree_descend_xla(jnp.asarray(tree),
+                                             jnp.asarray(u), depth, cap))
+    ref_pallas = np.asarray(jax_descend(jnp.asarray(tree), jnp.asarray(u),
+                                        depth, cap, interpret=True))
+    out = sumtree.sumtree_descend(torch.from_numpy(tree), torch.from_numpy(u),
+                                  depth, cap).numpy()
+    np.testing.assert_array_equal(out, ref_pallas)
+    np.testing.assert_array_equal(out, ref_xla)
+    if mass_kind == "zero":
+        assert (out == 0).all()               # never right of a zero-mass step
+    elif mass_kind == "over_total":
+        assert (out[1:] == cap - 1).all()     # above the total: rightmost leaf
+    if tree_kind == "empty_half" and mass_kind == "stratified":
+        assert (out < cap // 2).all()         # never an empty leaf
 
 
 def test_twin_priority_spike():
@@ -191,18 +245,24 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cap_pow", [8, 14, 17, 20])
-@pytest.mark.parametrize("batch", [256, 4096])
+@pytest.mark.parametrize("cap_pow", [0, 1, 3, 8, 13, 14, 17, 20, 21])
+@pytest.mark.parametrize("batch", [1, 255, 256, 4096])
 def test_kernel_bit_equal_to_twin(cuda, cap_pow, batch):
+    """Every depth from 0 to 21 (multiples of the kernel's levels per round
+    and not), partial warps, and the edge-case masses and trees."""
     cap = 1 << cap_pow
-    tree, depth = _build_tree(cap, seed=cap_pow)
-    t = torch.from_numpy(tree).to(cuda)
-    u = torch.from_numpy(_stratified_u(tree, batch, seed=batch)).to(cuda)
-    before = sumtree.launches
-    out = sumtree.sumtree_descend(t, u, depth, cap)
-    torch.cuda.synchronize()
-    assert sumtree.launches == before + 1
-    assert torch.equal(out, sumtree.sumtree_descend_ref(t, u, depth, cap))
+    for tree_kind, mass_kind in [("uniform", "stratified"), *EDGE_CASES]:
+        tree, depth = _build_tree(cap, seed=cap_pow,
+                                  empty_half=tree_kind == "empty_half")
+        t = torch.from_numpy(tree).to(cuda)
+        u = torch.from_numpy(_masses(tree, batch, mass_kind,
+                                     seed=batch)).to(cuda)
+        before = sumtree.launches
+        out = sumtree.sumtree_descend(t, u, depth, cap)
+        torch.cuda.synchronize()
+        assert sumtree.launches == before + 1
+        assert torch.equal(out, sumtree.sumtree_descend_ref(t, u, depth, cap)), \
+            (tree_kind, mass_kind)
 
 
 @pytest.mark.gpu
@@ -227,3 +287,7 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         sumtree.sumtree_descend(torch.zeros(32, device=cuda)[::2],
                                 torch.zeros(4, device=cuda), 3, 8)
+    with pytest.raises(ValueError):
+        sumtree.sumtree_descend(tree, torch.zeros(4, device="cpu"), 3, 8)
+    with pytest.raises(ValueError):
+        sumtree.sumtree_descend(tree, torch.zeros(2, 2, device=cuda), 3, 8)
