@@ -14,20 +14,37 @@ Phases (any failure raises, and the script exits non-zero):
    one launch on the kernel's grid; and the eager call times of the kernel
    and the yardstick, host overhead included;
 4. the port on the card against the port on the CPU at small sizes
-   (LunarLander steps, DQN updates, the PER buffer);
+   (LunarLander steps, DQN updates, the PER buffer), then for the trick
+   matrix and the discrete envs: five Rainbow updates from identical
+   params, batch and noise, ``c51_project``, a per-row noisy forward at
+   1024 rows, ``nstep_fold``, and 200 steps of each classic and tabular
+   env;
 5. the main path: train_offpolicy on LunarLander-v2 with
    DQNConfig(per=True, per_sampler="tree") at full width (8-128-4 net,
    buffer 1e6 -> 2^20, batch 256), 1024 envs; the sum-tree kernel must be
    launched once per learner step;
 6. the same loop with uniform replay (per=False);
-7. print one JSON line describing each kernel, the card line, and the
-   result line.
+7. Rainbow at full width: the same loop with double, dueling, PER (tree),
+   noisy, 3-step and C51 heads (noisy A head 128 -> 4*51, noisy V head
+   128 -> 51); it reaches the sum-tree kernel through ``sample_idx`` and
+   the n-step fold, once per learner step;
+8. the discrete env family at 1024 envs: CartPole-v1, MountainCar-v0,
+   FrozenLake-v1, Taxi-v3, and Pendulum-v1 and MountainCarContinuous-v0
+   through ``dis_to_con`` (16 bins), each trained by DQN with double,
+   dueling and uniform 3-step replay for 224 vector steps; returns must lie
+   in each env's range (an untrained MountainCar episode ends at -200);
+9. a learning check: DQN on CartPole-v1, 8 envs, 4 updates per step,
+   250 episodes, seed 0; the mean return of the last 30 episodes must
+   clear ``CARTPOLE_THRESHOLD``;
+10. print one JSON line describing each kernel, the card line, and the
+    result line.
 
 It needs no network and builds everything from the checkout.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -424,11 +441,183 @@ def phase_card_vs_cpu():
 
 
 # ---------------------------------------------------------------------------
-def phase_main_path(per: bool):
+RAINBOW = dict(double=True, dueling=True, per=True, per_sampler="tree",
+               noisy=True, n_step=3, categorical=True)
+
+
+def to_device(x, dev):
+    """A tensor, or a dataclass / list / tuple of tensors, on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, dev) for v in x)
+    return type(x)(**{f.name: to_device(getattr(x, f.name), dev)
+                      for f in dataclasses.fields(x)})
+
+
+def phase_card_vs_cpu_family():
+    """The trick matrix and the discrete envs on the card against the CPU,
+    from identical inputs and draws."""
+    import copy
+
     from freerl_tpu_torch.algos import DQN, DQNConfig
+    from freerl_tpu_torch.algos.common import c51_project
+    from freerl_tpu_torch.buffers import ReplayBuffer
+    from freerl_tpu_torch.buffers.nstep import nstep_fold
+    from freerl_tpu_torch.core.types import DimInfo, Transition
+    from freerl_tpu_torch.envs import make, step_auto_reset, vec_reset
+
+    rng = np.random.RandomState(1)
+    devs = ("cpu", "cuda")
+    errs = {}
+
+    def on(dev, x):
+        return torch.as_tensor(x).to(dev)
+
+    def worst(name, got, tol):
+        err = float((got["cpu"].double() - got["cuda"].double().cpu())
+                    .abs().max())
+        errs[name] = err
+        if not err <= tol:
+            raise AssertionError(f"{name} card vs CPU: max abs err {err} "
+                                 f"> {tol}")
+
+    # c51_project at the main path's shape (B 256, 51 atoms), tz partly
+    # outside [v_min, v_max]; the dense form has no atomics, so only the
+    # rounding of the two devices' reductions may differ
+    b, n = 256, 51
+    atoms = np.linspace(-100, 100, n).astype(np.float32)
+    logits = rng.randn(b, n)
+    probs = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(
+        np.float32)
+    g = 0.99 ** rng.randint(1, 4, b) * (rng.rand(b) > 0.1)
+    tz = ((rng.randn(b) * 40)[:, None] + g[:, None] * atoms).astype(np.float32)
+    worst("c51_project", {dev: c51_project(on(dev, probs), on(dev, tz),
+                                           on(dev, atoms)) for dev in devs},
+          1e-6)
+
+    # five Rainbow updates at full width from the same params, batch,
+    # IS weights, eff_gamma and noise
+    di, cfg = DimInfo(8, 4), DQNConfig(**RAINBOW)
+    cpu_algo = DQN(di, cfg, device="cpu")
+    init = cpu_algo.init(torch.Generator().manual_seed(0))
+    bs = 256
+    batch_np = dict(
+        obs=rng.randn(bs, 8).astype(np.float32),
+        action=rng.randint(0, 4, bs).astype(np.int32),
+        reward=(rng.randn(bs) * 10).astype(np.float32),
+        next_obs=rng.randn(bs, 8).astype(np.float32),
+        done=rng.rand(bs) < 0.1, episode_done=rng.rand(bs) < 0.1,
+    )
+    w = rng.rand(bs).astype(np.float32)
+    eff_gamma = (0.99 ** rng.randint(1, 4, bs)).astype(np.float32)
+    noises = [cpu_algo.draw_update_noise(init, torch.Generator().manual_seed(i))
+              for i in range(5)]
+    params = {}
+    for dev in devs:
+        algo = DQN(di, cfg, device=dev)
+        st = algo.init(torch.Generator(device=dev).manual_seed(0))
+        st.net.load_state_dict(init.net.state_dict())
+        st.target_net.load_state_dict(init.net.state_dict())
+        batch = Transition(**{k: on(dev, v) for k, v in batch_np.items()})
+        for noise in noises:
+            st, _, prio = algo.update(st, batch, on(dev, eff_gamma),
+                                      on(dev, w), to_device(noise, dev))
+        params[dev] = torch.cat(
+            [p.detach().flatten() for p in st.net.parameters()]
+            + [p.flatten() for p in st.target_net.parameters()] + [prio])
+    # the plain head's tolerance above; Adam's first steps scale every
+    # gradient element to about lr, so a near-zero gradient can carry the
+    # devices' matmul rounding further than the forward's
+    worst("rainbow_updates", params, 1e-5)
+
+    # the per-row noisy forward of exploration at 1024 rows
+    x = rng.randn(1024, 8).astype(np.float32)
+    rows = init.net.draw_noise(torch.Generator().manual_seed(9), rows=1024)
+    nets = {"cpu": init.net, "cuda": copy.deepcopy(init.net).to("cuda")}
+    with torch.no_grad():
+        worst("noisy_forward_1024_rows",
+              {dev: nets[dev](on(dev, x), to_device(rows, dev))
+               for dev in devs}, 1e-5)
+
+    # nstep_fold over a ring of 64 envs x 64 steps
+    n_envs = 64
+    ex = Transition(**{k: torch.as_tensor(v[0]) for k, v in batch_np.items()})
+    ring_np = [{k: np.roll(v, 7 * i, axis=0)[:n_envs]
+                for k, v in batch_np.items()} for i in range(64)]
+    idx = rng.randint(0, 64 * n_envs, 256)
+    folds = {}
+    for dev in devs:
+        ring = ReplayBuffer.create(64 * n_envs, to_device(ex, dev),
+                                   add_batch=n_envs)
+        for step in ring_np:
+            ring.add(Transition(**{k: on(dev, v) for k, v in step.items()}))
+        fold, eg = nstep_fold(ring.data, on(dev, idx), n_envs, 3, 0.99)
+        folds[dev] = (fold, eg)
+    for name in ("obs", "action", "next_obs", "done", "episode_done"):
+        if not torch.equal(getattr(folds["cpu"][0], name),
+                           getattr(folds["cuda"][0], name).cpu()):
+            raise AssertionError(f"nstep_fold {name} card vs CPU")
+    # returns reach about 60 in magnitude, where one f32 ulp is 3.8e-6:
+    # pow and the three-term sum may round an ulp or two apart
+    worst("nstep_fold_return", {d: f[0].reward for d, f in folds.items()},
+          1e-5)
+    worst("nstep_fold_eff_gamma", {d: f[1] for d, f in folds.items()}, 1e-6)
+
+    # 200 auto-resetting steps of each classic and tabular env, 256 rows;
+    # every step starts the card from the CPU's state and draws. cos/sin
+    # round an ulp apart on the two devices: rtol 1e-5 / atol 1e-5 for the
+    # classic envs, and a done flag may flip only on a threshold's ulp
+    flips = 0
+    for name in ("CartPole-v1", "MountainCar-v0", "MountainCarContinuous-v0",
+                 "Pendulum-v1", "FrozenLake-v1", "Taxi-v3"):
+        env = {dev: make(name, device=dev) for dev in devs}
+        gen = torch.Generator().manual_seed(0)
+        state, _ = vec_reset(env["cpu"], gen, 256)
+        exact = name in ("FrozenLake-v1", "Taxi-v3")
+        di = env["cpu"].dim_info
+        for t in range(200):
+            if di.is_continue:
+                action = torch.rand(256, 1, generator=gen) * 3.0 - 1.5
+            else:
+                action = torch.randint(0, di.action_dim, (256,), generator=gen)
+            draws = (env["cpu"].draw_step(256, gen),
+                     env["cpu"].draw_reset(256, gen))
+            out = {"cpu": step_auto_reset(env["cpu"], state, action, *draws)}
+            out["cuda"] = step_auto_reset(
+                env["cuda"], to_device(state, "cuda"), action.cuda(),
+                *to_device(draws, "cuda"))
+            same = out["cpu"].episode_done == out["cuda"].episode_done.cpu()
+            flips += int((~same).sum())
+            for field in ("next_obs", "carry_obs", "reward"):
+                a = getattr(out["cpu"], field)[same]
+                c = getattr(out["cuda"], field).cpu()[same]
+                ok = (torch.equal(a, c) if exact
+                      else torch.allclose(a, c, rtol=1e-5, atol=1e-5))
+                if not ok:
+                    raise AssertionError(
+                        f"{name} step {t} {field} card vs CPU: "
+                        f"{float((a - c).abs().max())}")
+            state = out["cpu"].state
+    if flips > 2:
+        raise AssertionError(f"{flips} done flags differ card vs CPU")
+    log(f"[card-vs-cpu] c51_project, 5 Rainbow updates, per-row noisy "
+        f"forward (1024 rows), nstep_fold, 200 steps of 6 envs: ok; max abs "
+        f"errs {json.dumps(errs)}; done flags that differ: {flips}")
+
+
+# ---------------------------------------------------------------------------
+def drive(env_name: str, dqn_cfg, loop_cfg, dis_to_con: bool = False):
+    """train_offpolicy on the card through the user's entry points, with
+    the sum-tree kernel's count set to 0 just before and read just after.
+    Checks finite losses and a consistent episode record; returns what the
+    phases check and print."""
+    from freerl_tpu_torch.algos import DQN
     from freerl_tpu_torch.envs import make
     from freerl_tpu_torch.ops import sumtree
-    from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy
+    from freerl_tpu_torch.train import train_offpolicy
 
     class ProbeDQN(DQN):
         """DQN that keeps each learner step's loss, its CUDA events and
@@ -450,54 +639,138 @@ def phase_main_path(per: bool):
             self.buffer = buffer
             return state, buffer, metrics
 
-    label = "PER tree" if per else "uniform"
-    env = make("LunarLander-v2", device="cuda")
-    algo = ProbeDQN(env.dim_info, DQNConfig(per=per, per_sampler="tree",
-                                            buffer_size=1_000_000,
-                                            batch_size=256, hidden=(128,)),
-                    device="cuda")
+    env = make(env_name, dis_to_con=dis_to_con, device="cuda")
+    algo = ProbeDQN(env.dim_info, dqn_cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sumtree.launches = 0
+    _, returns, info = train_offpolicy(env, algo, loop_cfg)
+    launches = sumtree.launches
+    torch.cuda.synchronize()
+    label = f"{env.name} {dqn_cfg}"
+    if len(algo.losses) != info["updates"]:
+        raise AssertionError(f"{label}: {len(algo.losses)} losses for "
+                             f"{info['updates']} learner steps")
+    if algo.losses and not bool(torch.isfinite(torch.stack(algo.losses)).all()):
+        raise AssertionError(f"{label}: non-finite loss")
+    if len(returns) != min(info["episodes"], loop_cfg.max_episodes):
+        raise AssertionError(f"{label}: episode record {len(returns)} for "
+                             f"{info}")
+    if not np.isfinite(returns).all():
+        raise AssertionError(f"{label}: non-finite episode return")
+    return dict(
+        env=env, algo=algo, returns=returns, info=info, launches=launches,
+        peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+        learn_ms=float(np.mean([s.elapsed_time(e) for s, e in algo.events]))
+        if algo.events else float("nan"))
+
+
+def phase_main_path(label: str, **tricks) -> int:
+    """DQN on LunarLander-v2 at full width, 1024 envs, 256 vector steps."""
+    from freerl_tpu_torch.algos import DQNConfig
+    from freerl_tpu_torch.train import OffPolicyConfig
+
     num_envs, chunk = 1024, 64
     cfg = OffPolicyConfig(seed=0, num_envs=num_envs, start_steps=500,
                           updates_per_burst=1, chunk_size=chunk,
                           max_env_steps=num_envs * chunk * 4,
                           max_episodes=10**9)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sumtree.launches = 0
-    _, returns, info = train_offpolicy(env, algo, cfg)
-    launches = sumtree.launches
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-
-    losses = torch.stack(algo.losses)
-    if not bool(torch.isfinite(losses).all()):
-        raise AssertionError(f"{label}: non-finite loss")
-    if info["updates"] < 200 or len(algo.losses) != info["updates"]:
+    dqn = DQNConfig(buffer_size=1_000_000, batch_size=256, hidden=(128,),
+                    **{"per_sampler": "tree", **tricks})
+    r = drive("LunarLander-v2", dqn, cfg)
+    info, launches, returns = r["info"], r["launches"], r["returns"]
+    if info["updates"] < 200:
         raise AssertionError(f"{label}: {info['updates']} learner steps")
-    if info["episodes"] <= 0 or len(returns) != info["episodes"]:
-        raise AssertionError(f"{label}: episode record {info}")
-    if not np.isfinite(returns).all():
-        raise AssertionError(f"{label}: non-finite episode return")
-    if per:
+    if info["episodes"] <= 0:
+        raise AssertionError(f"{label}: no episode finished")
+    if dqn.per:
         if launches != info["updates"]:
             raise AssertionError(
-                f"sumtree kernel launched {launches} times for "
+                f"{label}: sumtree kernel launched {launches} times for "
                 f"{info['updates']} learner steps")
-        buf = algo.buffer
+        buf = r["algo"].buffer
         root = float(buf.tree[1])
         leaves = float(buf.tree[buf.capacity:].double().sum())
         if abs(root - leaves) > 1e-4 * abs(leaves):
             raise AssertionError(f"PER root {root} != sum of leaves {leaves}")
     elif launches != 0:
         raise AssertionError("uniform replay launched the sum-tree kernel")
-    learn_ms = float(np.mean([s.elapsed_time(e) for s, e in algo.events]))
     log(f"[main {label}] {info['env_steps']} env steps, {info['updates']} "
         f"learner steps, {info['episodes']} episodes (mean return "
         f"{returns.mean():.1f}) in {info['elapsed_s']:.2f} s: "
         f"{info['env_steps_per_s']:.0f} env-steps/s, learner step "
-        f"{learn_ms:.3f} ms, peak memory {peak / 2**20:.1f} MiB, "
+        f"{r['learn_ms']:.3f} ms, peak memory {r['peak_mib']:.1f} MiB, "
         f"sumtree launches {launches}")
     return launches
+
+
+# the range one episode's return can take in each env of the family, as
+# DQN sees it; an untrained MountainCar episode is truncated at -200
+FAMILY = {
+    "CartPole-v1": (1.0, 500.0),
+    "MountainCar-v0": (-200.0, -200.0),
+    "FrozenLake-v1": (0.0, 1.0),
+    "Taxi-v3": (-2000.0, 20.0),
+    "Pendulum-v1": (-200 * (np.pi ** 2 + 6.4 + 0.004), 0.0),
+    "MountainCarContinuous-v0": (-0.1 * 999, 100.0),
+}
+
+
+def phase_family():
+    from freerl_tpu_torch.algos import DQNConfig
+    from freerl_tpu_torch.train import OffPolicyConfig
+
+    num_envs, chunk, chunks = 1024, 32, 7          # 224 > 200 steps
+    cfg = OffPolicyConfig(seed=0, num_envs=num_envs, start_steps=500,
+                          chunk_size=chunk, max_env_steps=num_envs * chunk
+                          * chunks, max_episodes=10**9, host_sync_every=1)
+    dqn = DQNConfig(double=True, dueling=True, n_step=3)
+    for name, (lo, hi) in FAMILY.items():
+        r = drive(name, dqn, cfg, dis_to_con=True)
+        info, returns = r["info"], r["returns"]
+        want = sum(1 for t in range(1, chunk * chunks + 1)
+                   if t * num_envs > cfg.start_steps)
+        if r["launches"] != 0 or info["updates"] != want:
+            raise AssertionError(f"{name}: {r['launches']} sum-tree launches, "
+                                 f"{info['updates']} learner steps")
+        if name != "MountainCarContinuous-v0" and len(returns) < num_envs:
+            raise AssertionError(f"{name}: only {len(returns)} episodes")
+        if len(returns) and not (returns.min() >= lo - 1e-3
+                                 and returns.max() <= hi + 1e-3):
+            raise AssertionError(f"{name}: returns in [{returns.min()}, "
+                                 f"{returns.max()}], outside [{lo}, {hi}]")
+        log(f"[family {r['env'].name}] {info['env_steps']} env steps, "
+            f"{info['updates']} learner steps, {info['episodes']} episodes "
+            f"(returns {returns.min() if len(returns) else 'none'} .. "
+            f"{returns.max() if len(returns) else 'none'}) in "
+            f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
+            f"env-steps/s, learner step {r['learn_ms']:.3f} ms")
+
+
+# the port on the CPU, this configuration, seeds 0-19, read 40.1-431.9 as
+# the mean of the last 30 of 250 episodes, three seeds under 60
+# (scripts/cartpole_seeds.py --device cpu); a uniform-random policy
+# averages about 22. The JAX package's recipe expects more than 60.
+CARTPOLE_THRESHOLD = 30.0
+
+
+def phase_learning():
+    from freerl_tpu_torch.algos import DQNConfig
+    from freerl_tpu_torch.train import OffPolicyConfig
+
+    cfg = OffPolicyConfig(seed=0, num_envs=8, max_episodes=250,
+                          start_steps=500, updates_per_burst=4,
+                          chunk_size=128)
+    r = drive("CartPole-v1", DQNConfig(buffer_size=20_000, batch_size=64),
+              cfg)
+    returns = r["returns"]
+    first, last = float(returns[:10].mean()), float(returns[-30:].mean())
+    log(f"[learning CartPole-v1] {len(returns)} episodes, "
+        f"{r['info']['env_steps']} env steps in {r['info']['elapsed_s']:.1f} "
+        f"s: first 10 episodes {first:.1f}, last 30 {last:.1f} (threshold "
+        f"{CARTPOLE_THRESHOLD})")
+    if len(returns) != 250 or not last > CARTPOLE_THRESHOLD:
+        raise AssertionError(f"CartPole did not learn: last 30 mean {last}")
 
 
 # ---------------------------------------------------------------------------
@@ -516,8 +789,12 @@ def main() -> int:
     phase_build()
     kernel = phase_sumtree()
     phase_card_vs_cpu()
-    kernel["launches"] = phase_main_path(per=True)
-    phase_main_path(per=False)
+    phase_card_vs_cpu_family()
+    kernel["launches"] = phase_main_path("PER tree", per=True)
+    phase_main_path("uniform", per=False)
+    kernel["launches_rainbow"] = phase_main_path("Rainbow", **RAINBOW)
+    phase_family()
+    phase_learning()
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [kernel]}))

@@ -1,10 +1,16 @@
 """Carry parameters over from the JAX package's flax params.
 
-flax nests each ``Dense`` of a ``QNetwork`` as ``Dense_k/Dense_0/{kernel,
-bias}`` (the framework ``Dense`` wraps an ``nn.Dense``), numbered in
-creation order: the hidden layers, then the head. Kernels are ``(in, out)``
-and torch weights ``(out, in)``, so they are transposed. Adam moments start
-at zero on both sides and need no carrying over.
+flax numbers the modules of a ``QNetwork`` by kind, in creation order:
+
+- each framework ``Dense`` is ``Dense_k/Dense_0/{kernel, bias}`` (it wraps
+  an ``nn.Dense``): the hidden layers, then, without Noisy, the A head and,
+  under Dueling, the V head;
+- under Noisy the heads are ``NoisyDense_0`` (A, or the atom logits under
+  C51) and ``NoisyDense_1`` (V), each ``{w_mu, w_sigma, b_mu, b_sigma}``.
+
+Kernels are ``(in, out)`` and torch weights ``(out, in)``, so they are
+transposed. Adam moments start at zero on both sides and need no carrying
+over.
 """
 from __future__ import annotations
 
@@ -12,22 +18,38 @@ import numpy as np
 import torch
 
 
-def dqn_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+def _t(x, transpose: bool = False) -> torch.Tensor:
+    x = np.asarray(x, np.float32)
+    return torch.from_numpy((x.T if transpose else x).copy())
+
+
+def dqn_params_from_flax(params: dict,
+                         dueling: bool = False) -> dict[str, torch.Tensor]:
     """Turn a flax ``QNetwork`` param tree (nested dicts of numpy arrays)
-    into a ``state_dict`` for :class:`freerl_tpu_torch.algos.dqn.QNetwork`.
-    """
-    names = sorted(params, key=lambda k: int(k.rsplit("_", 1)[1]))
-    if not names or any(not k.startswith("Dense_") for k in names):
+    into a ``state_dict`` for :class:`freerl_tpu_torch.algos.dqn.QNetwork`
+    with the same head combination (``dueling`` as configured; Noisy and
+    C51 show in the tree itself)."""
+    def ordered(prefix):
+        names = [k for k in params if k.startswith(prefix)]
+        return sorted(names, key=lambda k: int(k.rsplit("_", 1)[1]))
+
+    dense, noisy = ordered("Dense_"), ordered("NoisyDense_")
+    heads = ["head", "v_head"] if dueling else ["head"]
+    n_hidden = len(dense) - (0 if noisy else len(heads))
+    if (n_hidden < 0 or len(dense) + len(noisy) != len(params)
+            or noisy and len(noisy) != len(heads)):
         raise ValueError(
-            f"expected only Dense_<k> entries (plain head), got {sorted(params)}"
-        )
-    targets = [f"hidden.{i}" for i in range(len(names) - 1)] + ["head"]
+            f"not a QNetwork tree with dueling={dueling}: {sorted(params)}")
     state = {}
-    for name, target in zip(names, targets):
-        dense = params[name]["Dense_0"]
-        kernel = np.asarray(dense["kernel"], np.float32)
-        state[f"{target}.weight"] = torch.from_numpy(kernel.T.copy())
-        state[f"{target}.bias"] = torch.from_numpy(
-            np.asarray(dense["bias"], np.float32).copy()
-        )
+    targets = [f"hidden.{i}" for i in range(n_hidden)] + ([] if noisy else heads)
+    for name, target in zip(dense, targets):
+        layer = params[name]["Dense_0"]
+        state[f"{target}.weight"] = _t(layer["kernel"], transpose=True)
+        state[f"{target}.bias"] = _t(layer["bias"])
+    for name, target in zip(noisy, heads):
+        layer = params[name]
+        for key in ("w_mu", "w_sigma"):
+            state[f"{target}.{key}"] = _t(layer[key], transpose=True)
+        for key in ("b_mu", "b_sigma"):
+            state[f"{target}.{key}"] = _t(layer[key])
     return state

@@ -1,34 +1,45 @@
 """Environment registry (counterpart: ``freerl_tpu/envs/__init__.py``).
 
-``make(name, device=...)`` returns a batched :class:`Env` on ``device``.
-This slice of the port holds LunarLander-v2 only; every other name raises
-``KeyError`` naming the ROADMAP queue that ports it.
+``make(name, device=...)`` returns a batched :class:`Env` on ``device``;
+``make(name, dis_to_con=True)`` wraps a continuous-action env in the
+discrete bridge (16 bins for 1-D actions, ``bins_per_dim ** N`` for N-D).
+Every env of the JAX package that this port has not reached yet raises
+``KeyError`` naming the ROADMAP queue item that ports it.
 """
 from __future__ import annotations
 
 from freerl_tpu_torch.envs.base import (
+    DisToConWrapper,
     Env,
+    FixedResetWrapper,
     StepOut,
     record_scalarize,
     step_auto_reset,
     vec_reset,
     vec_step_auto_reset,
 )
+from freerl_tpu_torch.envs.classic import (
+    CartPole,
+    MountainCar,
+    MountainCarContinuous,
+    Pendulum,
+)
 from freerl_tpu_torch.envs.lunar_lander import LunarLander
+from freerl_tpu_torch.envs.tabular import FrozenLake, Taxi
 
 _REGISTRY = {
     "LunarLander-v2": LunarLander,
+    "CartPole-v1": CartPole,
+    "MountainCar-v0": MountainCar,
+    "MountainCarContinuous-v0": MountainCarContinuous,
+    "Pendulum-v1": Pendulum,
+    "FrozenLake-v1": FrozenLake,
+    "Taxi-v3": Taxi,
 }
 
 # envs of the JAX package not ported yet, with the ROADMAP queue A item
 # that ports them
 _PENDING = {
-    "CartPole-v1": "queue A, slice 2 (envs/classic.py)",
-    "MountainCar-v0": "queue A, slice 2 (envs/classic.py)",
-    "MountainCarContinuous-v0": "queue A, slice 2 (envs/classic.py)",
-    "Pendulum-v1": "queue A, slice 2 (envs/classic.py)",
-    "FrozenLake-v1": "queue A, slice 2 (envs/tabular.py)",
-    "Taxi-v3": "queue A, slice 2 (envs/tabular.py)",
     "LunarLanderContinuous-v2": "queue A, slice 3 (continuous off-policy)",
     "GoalPendulum-v1": "queue A, slice 3 (envs/goal.py)",
     "BipedalWalker-v3": "queue A, slice 4 (envs/bipedal.py)",
@@ -41,22 +52,39 @@ _PENDING = {
 }
 
 
-def make(name: str, device="cuda") -> Env:
+def register(name: str, cls) -> None:
+    _REGISTRY[name] = cls
+
+
+def make(name: str, dis_to_con: bool = False, n_bins: int = 16,
+         bins_per_dim: int = 2, device="cuda", **kwargs) -> Env:
     if name not in _REGISTRY:
         where = _PENDING.get(name, "no queue: the JAX package has no such env")
         raise KeyError(
             f"Env {name!r} is not ported to freerl_tpu_torch yet ({where} in "
             f"ROADMAP.md); ported: {sorted(_REGISTRY)}"
         )
-    return _REGISTRY[name](device=device)
+    env = _REGISTRY[name](device=device, **kwargs)
+    if dis_to_con and env.dim_info.is_continue:
+        env = DisToConWrapper(env, n_bins=n_bins, bins_per_dim=bins_per_dim)
+    return env
 
 
 __all__ = [
+    "CartPole",
+    "DisToConWrapper",
     "Env",
+    "FixedResetWrapper",
+    "FrozenLake",
     "LunarLander",
+    "MountainCar",
+    "MountainCarContinuous",
+    "Pendulum",
     "StepOut",
+    "Taxi",
     "make",
     "record_scalarize",
+    "register",
     "step_auto_reset",
     "vec_reset",
     "vec_step_auto_reset",

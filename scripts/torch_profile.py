@@ -1,10 +1,13 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-    python3 scripts/torch_profile.py [--per 1|0] [--num-envs 1024] [--steps 32]
+    python3 scripts/torch_profile.py [--config per|uniform|rainbow]
+                                     [--num-envs 1024] [--steps 32]
 
 Builds the DQN LunarLander actor-learner loop of ``train_offpolicy`` at
-full width (8-128-4 net, buffer 1e6, batch 256; PER on the sum-tree
-sampler unless ``--per 0``), warms it up for one chunk, then:
+full width (8-128-4 net, buffer 1e6, batch 256) with PER on the sum-tree
+sampler (``per``, the default), uniform replay (``uniform``) or all six
+tricks (``rainbow``: double, dueling, PER tree, noisy, 3-step, C51), warms
+it up for one chunk, then:
 
 1. times ``--steps`` vector steps as the loop runs them (no sync inside);
 2. times each phase of a vector step (explore, env step, replay add,
@@ -16,7 +19,7 @@ sampler unless ``--per 0``), warms it up for one chunk, then:
    that take the most device time.
 
 Prints one JSON line at the end; writes the profiler table to
-``chiprun_out/torch_profile_<per|uniform>.txt``.
+``torch_profile_<config>.txt`` in the git-ignored output directory.
 """
 from __future__ import annotations
 
@@ -35,10 +38,17 @@ from freerl_tpu_torch.algos import DQN, DQNConfig  # noqa: E402
 from freerl_tpu_torch.train import loop  # noqa: E402
 from freerl_tpu_torch.envs import make  # noqa: E402
 
+CONFIGS = {
+    "per": dict(per=True),
+    "uniform": dict(per=False),
+    "rainbow": dict(double=True, dueling=True, per=True, noisy=True,
+                    n_step=3, categorical=True),
+}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--per", type=int, default=1)
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="per")
     ap.add_argument("--num-envs", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args()
@@ -49,10 +59,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    label = "per" if args.per else "uniform"
+    label = args.config
 
     env = make("LunarLander-v2", device="cuda")
-    algo = DQN(env.dim_info, DQNConfig(per=bool(args.per), per_sampler="tree"),
+    algo = DQN(env.dim_info, DQNConfig(per_sampler="tree", **CONFIGS[label]),
                device="cuda")
     cfg = loop.OffPolicyConfig(num_envs=args.num_envs, start_steps=500,
                                chunk_size=64, max_episodes=10**9)
