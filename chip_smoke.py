@@ -609,23 +609,153 @@ def phase_card_vs_cpu_family():
 
 
 # ---------------------------------------------------------------------------
-def drive(env_name: str, dqn_cfg, loop_cfg, dis_to_con: bool = False):
-    """train_offpolicy on the card through the user's entry points, with
-    the sum-tree kernel's count set to 0 just before and read just after.
-    Checks finite losses and a consistent episode record; returns what the
-    phases check and print."""
-    from freerl_tpu_torch.algos import DQN
-    from freerl_tpu_torch.envs import make
-    from freerl_tpu_torch.ops import sumtree
-    from freerl_tpu_torch.train import train_offpolicy
+# the nine variants of the JAX package's tests/test_continuous.py, at full
+# width: (algo, config, continuous?)
+CONTINUOUS_VARIANTS = {
+    "ddpg": ("DDPG", dict(), True),
+    "ddpg_full": ("DDPG", dict(weight_decay=True, ou_noise=True,
+                               obs_norm=True, net_init=True, num_envs=1024),
+                  True),
+    "ddpg_popart": ("DDPG", dict(popart=True), True),
+    "ddpg_disc": ("DDPG", dict(), False),
+    "ddpg_disc_gumbel": ("DDPG", dict(discrete_gumbel=True), False),
+    "td3": ("TD3", dict(), True),
+    "td3_min": ("TD3", dict(clip_double=False, policy_noise=False,
+                            twin_delay=False), True),
+    "sac": ("SAC", dict(), True),
+    "sac_disc": ("SAC", dict(), False),
+}
 
-    class ProbeDQN(DQN):
-        """DQN that keeps each learner step's loss, its CUDA events and
-        the buffer, for the checks after the run (no device sync)."""
 
+def algo_classes(name: str):
+    from freerl_tpu_torch import algos
+
+    return getattr(algos, name), getattr(algos, name + "Config")
+
+
+def phase_card_vs_cpu_continuous():
+    """The continuous family on the card against the CPU: five updates of
+    each variant at full width from identical params, batch and draws;
+    200 auto-resetting steps of LunarLanderContinuous at 1024 envs;
+    relabel_future on a 200-step rollout of 1024 envs."""
+    from freerl_tpu_torch.core.types import DimInfo, Transition
+    from freerl_tpu_torch.envs import make, step_auto_reset, vec_reset
+    from freerl_tpu_torch.train import relabel_future
+
+    rng = np.random.RandomState(2)
+    devs = ("cpu", "cuda")
+    errs = {}
+    bs = 256
+    for name, (algo_name, extra, cont) in CONTINUOUS_VARIANTS.items():
+        cls, cfg_cls = algo_classes(algo_name)
+        di = (DimInfo(8, 2, True, 1.0) if cont else DimInfo(8, 4))
+        cfg = cfg_cls(batch_size=bs, **extra)
+        cpu_algo = cls(di, cfg, device="cpu")
+        init = cpu_algo.init(torch.Generator().manual_seed(0))
+        if cont:
+            action = rng.uniform(-1, 1, (bs, 2)).astype(np.float32)
+        elif name == "ddpg_disc":           # the behaviour probs it stores
+            action = rng.dirichlet(np.ones(4), bs).astype(np.float32)
+        else:
+            action = rng.randint(0, 4, bs).astype(np.int32)
+        batch_np = dict(
+            obs=rng.randn(bs, 8).astype(np.float32), action=action,
+            reward=(rng.randn(bs) * 10).astype(np.float32),
+            next_obs=rng.randn(bs, 8).astype(np.float32),
+            done=rng.rand(bs) < 0.1, episode_done=rng.rand(bs) < 0.1)
+        cpu_batch = Transition(**{k: torch.as_tensor(v)
+                                  for k, v in batch_np.items()})
+        gen = torch.Generator().manual_seed(1)
+        draws = [cpu_algo.draw_update(cpu_batch, gen) for _ in range(5)]
+        out = {}
+        for dev in devs:
+            algo = cls(di, cfg, device=dev)
+            st = algo.init(torch.Generator(device=dev).manual_seed(0))
+            for net in ("actor", "actor_target", "critic", "critic_target"):
+                getattr(st, net).load_state_dict(getattr(init, net).state_dict())
+            batch = to_device(cpu_batch, dev)
+            losses = []
+            for d in draws:
+                st, m, _ = algo.update(st, batch, to_device(d, dev))
+                losses += [m[k].reshape(1) for k in sorted(m)]
+            vals = [p.detach().flatten() for net in (
+                st.actor, st.actor_target, st.critic, st.critic_target)
+                for p in net.parameters()]
+            if algo_name == "SAC":
+                vals.append(st.log_alpha.detach().reshape(1))
+            if extra.get("popart"):
+                vals += [st.popart.mean.reshape(1), st.popart.var.reshape(1)]
+            out[dev] = (torch.cat(vals).cpu().double(),
+                        torch.cat(losses).cpu().double())
+        err = float((out["cpu"][0] - out["cuda"][0]).abs().max())
+        loss_err = float(((out["cpu"][1] - out["cuda"][1]).abs()
+                          / out["cpu"][1].abs().clamp(min=1.0)).max())
+        errs[name] = (err, loss_err)
+        # the DQN updates' tolerance for the learner state (float32 matmul
+        # and Adam rounding); the losses reach ~200 here, where one f32 ulp
+        # is 1.5e-5, so they are held relatively, to a few ulps
+        if not (err <= 1e-5 and loss_err <= 1e-6):
+            raise AssertionError(f"{name} updates card vs CPU: max abs err "
+                                 f"{err}, losses' max rel err {loss_err}")
+
+    # 200 auto-resetting steps of LunarLanderContinuous, 1024 rows; every
+    # step starts the card from the CPU's state and draws
+    env = {dev: make("LunarLanderContinuous-v2", device=dev) for dev in devs}
+    gen = torch.Generator().manual_seed(0)
+    state, _ = vec_reset(env["cpu"], gen, 1024)
+    flips, worst = 0, 0.0
+    for step in range(200):
+        action = torch.rand(1024, 2, generator=gen) * 3.0 - 1.5
+        draws = (env["cpu"].draw_step(1024, gen),
+                 env["cpu"].draw_reset(1024, gen))
+        cpu = step_auto_reset(env["cpu"], state, action, *draws)
+        card = step_auto_reset(env["cuda"], to_device(state, "cuda"),
+                               action.cuda(), *to_device(draws, "cuda"))
+        same = cpu.episode_done == card.episode_done.cpu()
+        flips += int((~same).sum())
+        for field in ("next_obs", "carry_obs", "reward"):
+            a = getattr(cpu, field)[same]
+            c = getattr(card, field).cpu()[same]
+            worst = max(worst, float((a - c).abs().max()))
+            if not torch.allclose(a, c, rtol=1e-4, atol=1e-3):
+                raise AssertionError(f"LunarLanderContinuous step {step} "
+                                     f"{field} card vs CPU")
+        state = cpu.state
+    if flips > 0.001 * 200 * 1024:
+        raise AssertionError(f"{flips} done flags differ card vs CPU")
+
+    # relabel_future: 1024 trajectories of 200 steps, 4 goals each
+    genv = {dev: make("GoalPendulum-v1", device=dev) for dev in devs}
+    roll = dict(obs=rng.randn(1024, 200, 6), action=rng.randn(1024, 200, 1),
+                next_obs=rng.randn(1024, 200, 6), u=rng.rand(1024, 200, 4))
+    roll = {k: torch.from_numpy(v.astype(np.float32)) for k, v in roll.items()}
+    rel = {dev: relabel_future(genv[dev], *[roll[k].to(dev) for k in (
+        "obs", "action", "next_obs", "u")], 200) for dev in devs}
+    for field in ("obs", "action", "next_obs", "done"):
+        if not torch.equal(getattr(rel["cpu"], field),
+                           getattr(rel["cuda"], field).cpu()):
+            raise AssertionError(f"relabel_future {field} card vs CPU")
+    # the sparse reward thresholds a float cost: a flip needs a cost within
+    # an ulp of the tolerance
+    reward_flips = int((rel["cpu"].reward != rel["cuda"].reward.cpu()).sum())
+    if reward_flips > 2:
+        raise AssertionError(f"relabel_future: {reward_flips} rewards differ")
+    log(f"[card-vs-cpu continuous] 5 updates of 9 variants at full width, "
+        f"batch {bs}: (state max abs err, losses max rel err) "
+        f"{json.dumps(errs)}; LunarLanderContinuous "
+        f"200 steps x 1024: max abs err {worst:.2e}, done flags that differ "
+        f"{flips}; relabel_future 1024 x 200 x 4 = {rel['cpu'].obs.shape[0]} "
+        f"rows: equal, rewards that differ {reward_flips}")
+
+
+# ---------------------------------------------------------------------------
+def probe(algo_cls):
+    """``algo_cls`` keeping each learner step's metrics, its CUDA events and
+    the buffer, for the checks after the run (no device sync)."""
+    class Probe(algo_cls):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
-            self.losses, self.events, self.buffer = [], [], None
+            self.metrics, self.events, self.buffer = [], [], None
 
         def learn_step(self, state, buffer, generator, num_envs):
             start = torch.cuda.Event(enable_timing=True)
@@ -635,34 +765,72 @@ def drive(env_name: str, dqn_cfg, loop_cfg, dis_to_con: bool = False):
                 state, buffer, generator, num_envs)
             end.record()
             self.events.append((start, end))
-            self.losses.append(metrics["loss"])
+            self.metrics.append(metrics)
             self.buffer = buffer
             return state, buffer, metrics
 
-    env = make(env_name, dis_to_con=dis_to_con, device="cuda")
-    algo = ProbeDQN(env.dim_info, dqn_cfg, device="cuda")
+    return Probe
+
+
+LOSSES = ("loss", "critic_loss", "actor_loss", "alpha")
+
+
+def check_metrics(label: str, algo) -> list:
+    """Every reported loss of every learner step is finite; returns the
+    names checked."""
+    names = [k for k in LOSSES if algo.metrics and k in algo.metrics[0]]
+    for k in names:
+        if not bool(torch.isfinite(torch.stack(
+                [m[k] for m in algo.metrics])).all()):
+            raise AssertionError(f"{label}: non-finite {k}")
+    return names
+
+
+def run_probed(run, env, algo, label: str):
+    """``run()`` (a user entry point) on the card with the sum-tree
+    kernel's count set to 0 just before and read just after; the common
+    numbers the phases print."""
+    from freerl_tpu_torch.ops import sumtree
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sumtree.launches = 0
-    _, returns, info = train_offpolicy(env, algo, loop_cfg)
+    _, returns, info = run()
     launches = sumtree.launches
     torch.cuda.synchronize()
-    label = f"{env.name} {dqn_cfg}"
-    if len(algo.losses) != info["updates"]:
-        raise AssertionError(f"{label}: {len(algo.losses)} losses for "
-                             f"{info['updates']} learner steps")
-    if algo.losses and not bool(torch.isfinite(torch.stack(algo.losses)).all()):
-        raise AssertionError(f"{label}: non-finite loss")
-    if len(returns) != min(info["episodes"], loop_cfg.max_episodes):
-        raise AssertionError(f"{label}: episode record {len(returns)} for "
-                             f"{info}")
+    checked = check_metrics(label, algo)
     if not np.isfinite(returns).all():
         raise AssertionError(f"{label}: non-finite episode return")
     return dict(
         env=env, algo=algo, returns=returns, info=info, launches=launches,
+        checked=checked,
         peak_mib=torch.cuda.max_memory_allocated() / 2**20,
         learn_ms=float(np.mean([s.elapsed_time(e) for s, e in algo.events]))
         if algo.events else float("nan"))
+
+
+def drive(env_name: str, algo_cfg, loop_cfg, dis_to_con: bool = False,
+          algo_cls=None):
+    """train_offpolicy on the card through the user's entry points (DQN
+    unless ``algo_cls`` says otherwise). Checks finite losses and a
+    consistent episode record; returns what the phases check and print."""
+    from freerl_tpu_torch.algos import DQN
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import train_offpolicy
+
+    env = make(env_name, dis_to_con=dis_to_con, device="cuda")
+    algo = probe(algo_cls or DQN)(env.dim_info, algo_cfg, device="cuda")
+    label = f"{env.name} {algo_cfg}"
+    r = run_probed(lambda: train_offpolicy(env, algo, loop_cfg), env, algo,
+                   label)
+    info, returns = r["info"], r["returns"]
+    if len(algo.metrics) != info["updates"]:
+        raise AssertionError(f"{label}: {len(algo.metrics)} metrics for "
+                             f"{info['updates']} learner steps")
+    if len(returns) != min(info["episodes"], loop_cfg.max_episodes):
+        raise AssertionError(f"{label}: episode record {len(returns)} for "
+                             f"{info}")
+    return r
 
 
 def phase_main_path(label: str, **tricks) -> int:
@@ -747,6 +915,112 @@ def phase_family():
             f"env-steps/s, learner step {r['learn_ms']:.3f} ms")
 
 
+def phase_continuous(algo_name: str) -> dict:
+    """DDPG, TD3 or SAC on LunarLanderContinuous-v2 at full width (the
+    config's defaults: hidden (128, 128), replay 1e6), batch 256, 1024
+    envs, 256 vector steps, one update per vector step."""
+    from freerl_tpu_torch.train import OffPolicyConfig
+
+    num_envs, chunk = 1024, 64
+    cls, cfg_cls = algo_classes(algo_name)
+    cfg = OffPolicyConfig(seed=0, num_envs=num_envs, start_steps=500,
+                          updates_per_burst=1, chunk_size=chunk,
+                          max_env_steps=num_envs * chunk * 4,
+                          max_episodes=10**9)
+    algo_cfg = cfg_cls(batch_size=256, num_envs=num_envs)
+    r = drive("LunarLanderContinuous-v2", algo_cfg, cfg, algo_cls=cls)
+    info, returns, buf = r["info"], r["returns"], r["algo"].buffer
+    label = f"continuous {algo_name}"
+    if info["updates"] != 256 or r["launches"] != 0:
+        raise AssertionError(f"{label}: {info['updates']} learner steps, "
+                             f"{r['launches']} sum-tree launches")
+    # no lower bound: the shaping term charges an unwrapped hull angle
+    if info["episodes"] <= 0 or not returns.max() <= 400:
+        raise AssertionError(f"{label}: {info['episodes']} episodes, "
+                             f"returns {returns.min()} .. {returns.max()}")
+    max_abs = float(buf.data.action[:buf.size].abs().max())
+    if max_abs > r["env"].dim_info.max_action:
+        raise AssertionError(f"{label}: stored action {max_abs} out of range")
+    log(f"[continuous {algo_name}] {info['env_steps']} env steps, "
+        f"{info['updates']} learner steps, {info['episodes']} episodes (mean "
+        f"return {returns.mean():.1f}) in {info['elapsed_s']:.2f} s: "
+        f"{info['env_steps_per_s']:.0f} env-steps/s, learner step "
+        f"{r['learn_ms']:.3f} ms, peak memory {r['peak_mib']:.1f} MiB, max "
+        f"|action| {max_abs:.4f}, finite {r['checked']}, sumtree launches "
+        f"{r['launches']}")
+    return dict(env_steps_per_s=info["env_steps_per_s"],
+                learn_ms=r["learn_ms"], peak_mib=r["peak_mib"],
+                launches=r["launches"])
+
+
+def phase_discrete_actor_critic() -> int:
+    """Discrete DDPG (softmax and Gumbel actors, through explore_stored)
+    and discrete SAC on CartPole-v1: 1024 envs, 224 vector steps."""
+    from freerl_tpu_torch.train import OffPolicyConfig
+
+    num_envs, chunk, chunks = 1024, 32, 7
+    cfg = OffPolicyConfig(seed=0, num_envs=num_envs, start_steps=500,
+                          chunk_size=chunk, max_env_steps=num_envs * chunk
+                          * chunks, max_episodes=10**9, host_sync_every=1)
+    launches = 0
+    for label, algo_name, extra in (
+            ("DDPG softmax", "DDPG", dict()),
+            ("DDPG gumbel", "DDPG", dict(discrete_gumbel=True)),
+            ("SAC", "SAC", dict())):
+        cls, cfg_cls = algo_classes(algo_name)
+        r = drive("CartPole-v1", cfg_cls(batch_size=256, **extra), cfg,
+                  algo_cls=cls)
+        info, returns, buf = r["info"], r["returns"], r["algo"].buffer
+        launches += r["launches"]
+        action = buf.data.action[:buf.size]
+        if algo_name == "DDPG":
+            stored_ok = bool(((action.sum(1) - 1).abs() < 1e-4).all())
+        else:
+            stored_ok = action.dim() == 1 and action.dtype == torch.int32
+        if (info["updates"] != chunk * chunks or r["launches"] != 0
+                or len(returns) < num_envs or not stored_ok
+                or not (returns.min() >= 1 and returns.max() <= 500)):
+            raise AssertionError(f"CartPole {label}: {info}, sum-tree "
+                                 f"launches {r['launches']}, stored actions "
+                                 f"ok {stored_ok}")
+        log(f"[discrete CartPole-v1 {label}] {info['env_steps']} env steps, "
+            f"{info['updates']} learner steps, {info['episodes']} episodes "
+            f"(returns {returns.min()} .. {returns.max()}) in "
+            f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
+            f"env-steps/s, learner step {r['learn_ms']:.3f} ms, peak memory "
+            f"{r['peak_mib']:.1f} MiB, stored action {tuple(action.shape[1:])} "
+            f"{action.dtype}")
+    return launches
+
+
+def phase_her() -> int:
+    """train_her with DDPG on GoalPendulum-v1: 1024 envs, two episodes of
+    200 steps, 200 updates per episode."""
+    from freerl_tpu_torch.algos import DDPG, DDPGConfig
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import HERConfig, train_her
+
+    env = make("GoalPendulum-v1", device="cuda")
+    algo = probe(DDPG)(env.dim_info, DDPGConfig(batch_size=256),
+                       device="cuda")
+    cfg = HERConfig(num_envs=1024, max_episodes=2048, updates_per_episode=200)
+    r = run_probed(lambda: train_her(env, algo, cfg), env, algo, "HER")
+    info, returns = r["info"], r["returns"]
+    if (len(returns) != 2048 or len(algo.metrics) != 400 or r["launches"]
+            or not (returns.min() >= -200 and returns.max() <= 0)):
+        raise AssertionError(f"HER: {info}, {len(algo.metrics)} learner "
+                             f"steps, returns {returns.min()} .. "
+                             f"{returns.max()}")
+    log(f"[her GoalPendulum-v1] {info['env_steps']} env steps, "
+        f"{len(algo.metrics)} learner steps, {info['episodes']} episodes "
+        f"(returns {returns.min()} .. {returns.max()}, mean "
+        f"{returns.mean():.1f}) in {info['elapsed_s']:.2f} s: "
+        f"{info['env_steps'] / info['elapsed_s']:.0f} env-steps/s, learner "
+        f"step {r['learn_ms']:.3f} ms, peak memory {r['peak_mib']:.1f} MiB, "
+        f"ring {r['algo'].buffer.size} rows")
+    return r["launches"]
+
+
 # the port on the CPU, this configuration, seeds 0-19, read 40.1-431.9 as
 # the mean of the last 30 of 250 episodes, three seeds under 60
 # (scripts/cartpole_seeds.py --device cpu); a uniform-random policy
@@ -773,6 +1047,36 @@ def phase_learning():
         raise AssertionError(f"CartPole did not learn: last 30 mean {last}")
 
 
+# the JAX package's threshold for this recipe
+# (tests/test_continuous.py:149-159); the port on the CPU, seeds 0-19,
+# clears it in every seed (scripts/cartpole_seeds.py --recipe sac_pendulum)
+SAC_PENDULUM_THRESHOLD = -500.0
+
+
+def phase_learning_sac():
+    """SAC on Pendulum-v1 with the JAX package's recipe: 8 envs, 120
+    episodes, start and random steps 1000, 4 updates per vector step,
+    replay 50,000, seed 0; the mean return of the last 20 episodes must
+    clear ``SAC_PENDULUM_THRESHOLD``."""
+    from freerl_tpu_torch.algos import SAC, SACConfig
+    from freerl_tpu_torch.train import OffPolicyConfig
+
+    cfg = OffPolicyConfig(seed=0, num_envs=8, max_episodes=120,
+                          start_steps=1000, random_steps=1000,
+                          updates_per_burst=4, chunk_size=100)
+    r = drive("Pendulum-v1", SACConfig(buffer_size=50_000, num_envs=8), cfg,
+              algo_cls=SAC)
+    returns = r["returns"]
+    first, last = float(returns[:20].mean()), float(returns[-20:].mean())
+    log(f"[learning Pendulum-v1 SAC] {len(returns)} episodes, "
+        f"{r['info']['env_steps']} env steps, {r['info']['updates']} learner "
+        f"steps in {r['info']['elapsed_s']:.1f} s (learner step "
+        f"{r['learn_ms']:.3f} ms): first 20 episodes {first:.1f}, last 20 "
+        f"{last:.1f} (threshold {SAC_PENDULUM_THRESHOLD})")
+    if len(returns) < 100 or not last > SAC_PENDULUM_THRESHOLD:
+        raise AssertionError(f"SAC did not learn Pendulum: last 20 mean {last}")
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -794,7 +1098,14 @@ def main() -> int:
     phase_main_path("uniform", per=False)
     kernel["launches_rainbow"] = phase_main_path("Rainbow", **RAINBOW)
     phase_family()
+    phase_card_vs_cpu_continuous()
+    continuous = {name: phase_continuous(name) for name in ("DDPG", "TD3",
+                                                              "SAC")}
+    kernel["launches_continuous"] = (
+        sum(c["launches"] for c in continuous.values())
+        + phase_discrete_actor_critic() + phase_her())
     phase_learning()
+    phase_learning_sac()
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [kernel]}))

@@ -1,6 +1,16 @@
 from freerl_tpu_torch.algos import common
-from freerl_tpu_torch.algos.base import ExploreCtx, OffPolicyAlgo
+from freerl_tpu_torch.algos.base import ExploreCtx, ExploreDraws, OffPolicyAlgo
+from freerl_tpu_torch.algos.ddpg import (DDPG, DDPGConfig, DDPGState, QCritic,
+                                         SoftmaxActor, TanhActor,
+                                         gumbel_softmax)
 from freerl_tpu_torch.algos.dqn import DQN, DQNConfig, DQNState, QNetwork
+from freerl_tpu_torch.algos.sac import (SAC, GaussianActor, SACConfig,
+                                        SACState, SoftmaxPolicy, TwinQTable)
+from freerl_tpu_torch.algos.td3 import TD3, TD3Config, TD3State, TwinQCritic
 
-__all__ = ["DQN", "DQNConfig", "DQNState", "ExploreCtx", "OffPolicyAlgo",
-           "QNetwork", "common"]
+__all__ = ["DDPG", "DDPGConfig", "DDPGState", "DQN", "DQNConfig", "DQNState",
+           "ExploreCtx", "ExploreDraws", "GaussianActor", "OffPolicyAlgo",
+           "QCritic", "QNetwork", "SAC", "SACConfig", "SACState",
+           "SoftmaxActor", "SoftmaxPolicy", "TD3", "TD3Config", "TD3State",
+           "TanhActor", "TwinQCritic", "TwinQTable", "common",
+           "gumbel_softmax"]

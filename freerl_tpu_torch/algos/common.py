@@ -3,7 +3,7 @@
 losses) comes with the slices that use it."""
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import torch
 
@@ -12,9 +12,12 @@ import torch
 def polyak(target_params: Iterable[torch.Tensor],
            online_params: Iterable[torch.Tensor], tau: float) -> None:
     """theta_target <- theta_target*(1-tau) + theta*tau, in place, with the
-    JAX formula's rounding (no fused multiply-add)."""
-    for t, o in zip(target_params, online_params):
-        t.mul_(1.0 - tau).add_(o * tau)
+    JAX formula's rounding (no fused multiply-add). The multi-tensor
+    (foreach) ops launch a few kernels for the whole group instead of
+    three per tensor."""
+    targets = list(target_params)
+    torch._foreach_mul_(targets, 1.0 - tau)
+    torch._foreach_add_(targets, torch._foreach_mul(list(online_params), tau))
 
 
 def td_target(reward: torch.Tensor, gamma, next_value: torch.Tensor,
@@ -31,6 +34,36 @@ def clip_grads_by_norm(grads: list[torch.Tensor],
     norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return [g * scale for g in grads]
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor],
+                        max_norm: float) -> list[torch.Tensor]:
+    """``optax.clip_by_global_norm``: a group of gradients is kept as it is
+    when its global L2 norm is below ``max_norm``, and is otherwise
+    ``(g / norm) * max_norm``, with no epsilon. The choice is a
+    ``torch.where`` on the device, so it costs no host sync. The group is
+    clipped as one flat tensor (eight kernels, however many tensors) and
+    handed back as views of it."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    norm = torch.sqrt(torch.sum(torch.square(flat)))
+    flat = torch.where(norm < max_norm, flat, (flat / norm) * max_norm)
+    parts = torch.split(flat, [g.numel() for g in grads])
+    return [part.view(g.shape) for part, g in zip(parts, grads)]
+
+
+def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
+                   loss: torch.Tensor, max_norm: float | None = None) -> None:
+    """One step of ``opt`` on ``params`` down the gradient of ``loss``,
+    clipped first by :func:`clip_by_global_norm` when ``max_norm`` is
+    given. Only ``params`` get gradients: a loss that runs through another
+    net (the critic under the actor loss) leaves that net's ``.grad``
+    alone."""
+    grads = torch.autograd.grad(loss, params)
+    if max_norm is not None:
+        grads = clip_by_global_norm(grads, max_norm)
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
 
 
 def c51_project(next_probs: torch.Tensor, tz: torch.Tensor,

@@ -68,10 +68,18 @@ class ReplayBuffer:
                 f"path. Create the buffer with add_batch=0 for mixed-size "
                 f"adds (scatter path)."
             )
+        start = self.pos
+        if b > self.capacity:
+            # the scatter would write some slots twice, and a CUDA
+            # index_put_ gives no order: write only the last capacity rows,
+            # the ones a last-writer-wins scatter keeps
+            start = (self.pos + b - self.capacity) % self.capacity
+            batch = batch.map(lambda x: x[b - self.capacity:])
         if self.align > 0:
             rows = slice(self.pos, self.pos + b)
         else:
-            rows = (self.pos + torch.arange(b, device=batch.obs.device)) \
+            rows = (start + torch.arange(min(b, self.capacity),
+                                         device=batch.obs.device)) \
                 % self.capacity
         for f in dataclasses.fields(Transition):
             buf = getattr(self.data, f.name)

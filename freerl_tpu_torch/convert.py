@@ -1,5 +1,12 @@
 """Carry parameters over from the JAX package's flax params.
 
+``net_params_from_flax`` serves the actor and critic nets of DDPG, TD3 and
+SAC: ``TanhActor``, ``SoftmaxActor``, ``QCritic``, ``GaussianActor`` and
+``SoftmaxPolicy`` are ``Dense_k/Dense_0/{kernel, bias}`` (the hidden layers,
+then the head; ``GaussianActor`` also has ``log_std``), and ``TwinQCritic``
+and ``TwinQTable`` are ``q1_0 ... q1_out`` and ``q2_0 ... q2_out``, each
+``/Dense_0/{kernel, bias}``.
+
 flax numbers the modules of a ``QNetwork`` by kind, in creation order:
 
 - each framework ``Dense`` is ``Dense_k/Dense_0/{kernel, bias}`` (it wraps
@@ -23,17 +30,20 @@ def _t(x, transpose: bool = False) -> torch.Tensor:
     return torch.from_numpy((x.T if transpose else x).copy())
 
 
+def _by_suffix(names):
+    """flax module names (``Dense_3``, ``q1_0``) in the order of their
+    integer suffix, not lexicographically."""
+    return sorted(names, key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
 def dqn_params_from_flax(params: dict,
                          dueling: bool = False) -> dict[str, torch.Tensor]:
     """Turn a flax ``QNetwork`` param tree (nested dicts of numpy arrays)
     into a ``state_dict`` for :class:`freerl_tpu_torch.algos.dqn.QNetwork`
     with the same head combination (``dueling`` as configured; Noisy and
     C51 show in the tree itself)."""
-    def ordered(prefix):
-        names = [k for k in params if k.startswith(prefix)]
-        return sorted(names, key=lambda k: int(k.rsplit("_", 1)[1]))
-
-    dense, noisy = ordered("Dense_"), ordered("NoisyDense_")
+    dense = _by_suffix(k for k in params if k.startswith("Dense_"))
+    noisy = _by_suffix(k for k in params if k.startswith("NoisyDense_"))
     heads = ["head", "v_head"] if dueling else ["head"]
     n_hidden = len(dense) - (0 if noisy else len(heads))
     if (n_hidden < 0 or len(dense) + len(noisy) != len(params)
@@ -52,4 +62,41 @@ def dqn_params_from_flax(params: dict,
             state[f"{target}.{key}"] = _t(layer[key], transpose=True)
         for key in ("b_mu", "b_sigma"):
             state[f"{target}.{key}"] = _t(layer[key])
+    return state
+
+
+def _mlp_params(layers: list, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The flax ``Dense`` layers of one MLP, in order, as ``hidden.i`` and
+    ``head`` entries of a torch ``MLP``'s state_dict."""
+    names = [f"hidden.{i}" for i in range(len(layers) - 1)] + ["head"]
+    state = {}
+    for name, layer in zip(names, layers):
+        layer = layer["Dense_0"]
+        state[f"{prefix}{name}.weight"] = _t(layer["kernel"], transpose=True)
+        state[f"{prefix}{name}.bias"] = _t(layer["bias"])
+    return state
+
+
+def net_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """Turn the flax param tree of a DDPG / TD3 / SAC actor or critic
+    (nested dicts of numpy arrays) into a ``state_dict`` for the port's
+    net of the same kind."""
+    twin = {k for k in params if k.startswith(("q1_", "q2_"))}
+    if twin:
+        if twin != set(params):
+            raise ValueError(f"not a twin critic tree: {sorted(params)}")
+        state = {}
+        for q in ("q1", "q2"):
+            hidden = _by_suffix(k for k in params
+                                if k.startswith(f"{q}_") and k != f"{q}_out")
+            layers = [params[k] for k in hidden] + [params[f"{q}_out"]]
+            state.update(_mlp_params(layers, f"{q}_net."))
+        return state
+    dense = _by_suffix(k for k in params if k.startswith("Dense_"))
+    extra = set(params) - set(dense)
+    if not dense or extra - {"log_std"}:
+        raise ValueError(f"not an actor or critic tree: {sorted(params)}")
+    state = _mlp_params([params[k] for k in dense])
+    if extra:
+        state["log_std"] = _t(params["log_std"])
     return state

@@ -24,24 +24,25 @@ from freerl_tpu_torch.envs.classic import (
     MountainCarContinuous,
     Pendulum,
 )
-from freerl_tpu_torch.envs.lunar_lander import LunarLander
+from freerl_tpu_torch.envs.goal import GoalPendulum
+from freerl_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderContinuous
 from freerl_tpu_torch.envs.tabular import FrozenLake, Taxi
 
 _REGISTRY = {
     "LunarLander-v2": LunarLander,
+    "LunarLanderContinuous-v2": LunarLanderContinuous,
     "CartPole-v1": CartPole,
     "MountainCar-v0": MountainCar,
     "MountainCarContinuous-v0": MountainCarContinuous,
     "Pendulum-v1": Pendulum,
     "FrozenLake-v1": FrozenLake,
     "Taxi-v3": Taxi,
+    "GoalPendulum-v1": GoalPendulum,
 }
 
 # envs of the JAX package not ported yet, with the ROADMAP queue A item
 # that ports them
 _PENDING = {
-    "LunarLanderContinuous-v2": "queue A, slice 3 (continuous off-policy)",
-    "GoalPendulum-v1": "queue A, slice 3 (envs/goal.py)",
     "BipedalWalker-v3": "queue A, slice 4 (envs/bipedal.py)",
     "simple_spread_v3": "queue A, slice 5 (envs/mpe.py)",
     "simple_adversary_v3": "queue A, slice 5 (envs/mpe.py)",
@@ -76,7 +77,9 @@ __all__ = [
     "Env",
     "FixedResetWrapper",
     "FrozenLake",
+    "GoalPendulum",
     "LunarLander",
+    "LunarLanderContinuous",
     "MountainCar",
     "MountainCarContinuous",
     "Pendulum",

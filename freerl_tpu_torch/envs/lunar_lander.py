@@ -1,5 +1,6 @@
-"""LunarLander-v2 as a batched rigid-body simulation on ``(B,)`` tensors
-(counterpart: ``freerl_tpu/envs/lunar_lander.py``).
+"""LunarLander-v2 and LunarLanderContinuous-v2 as a batched rigid-body
+simulation on ``(B,)`` tensors (counterpart:
+``freerl_tpu/envs/lunar_lander.py``).
 
 The physics is the JAX package's re-derivation of gymnasium's Box2D env:
 one rigid hull with two rigidly attached legs, gravity -10, impulse-based
@@ -110,11 +111,10 @@ def _shaping(obs):
     )
 
 
-class LunarLander(Env):
-    """Discrete: 0 noop, 1 fire left (push right), 2 main, 3 fire right."""
+class _LunarLanderBase(Env):
+    """The physics shared by both action spaces; a subclass maps its
+    actions to engine powers in ``_engine_powers``."""
 
-    name = "LunarLander-v2"
-    dim_info = DimInfo(obs_dim=8, action_dim=4, is_continue=False)
     max_steps = 1000
     reward_threshold = 200.0
 
@@ -175,12 +175,8 @@ class LunarLander(Env):
 
     @staticmethod
     def _engine_powers(action):
-        m_power = (action == 2).to(torch.float32)
-        is_side = (action == 1) | (action == 3)
-        s_power = is_side.to(torch.float32)
-        # gym: direction = action - 2 (1 -> -1 left engine, 3 -> +1 right)
-        direction = (action.to(torch.float32) - 2.0) * is_side
-        return m_power, s_power, direction
+        """(main power, side power, side direction), each (B,)."""
+        raise NotImplementedError
 
     # ------------------------------------------------------------------
     def step(self, state: LanderState, action: torch.Tensor,
@@ -324,3 +320,41 @@ class LunarLander(Env):
         new.prev_shaping = shaping
         new.rest_time = rest_time
         return new, obs, reward, terminated, truncated
+
+
+class LunarLander(_LunarLanderBase):
+    """Discrete: 0 noop, 1 fire left (push right), 2 main, 3 fire right."""
+
+    name = "LunarLander-v2"
+    dim_info = DimInfo(obs_dim=8, action_dim=4, is_continue=False)
+
+    @staticmethod
+    def _engine_powers(action):
+        m_power = (action == 2).to(torch.float32)
+        is_side = (action == 1) | (action == 3)
+        s_power = is_side.to(torch.float32)
+        # gym: direction = action - 2 (1 -> -1 left engine, 3 -> +1 right)
+        direction = (action.to(torch.float32) - 2.0) * is_side
+        return m_power, s_power, direction
+
+
+class LunarLanderContinuous(_LunarLanderBase):
+    """Continuous, (B, 2) actions clipped to [-1, 1]: a0 is the main
+    throttle (off at a0 <= 0, else 50-100% power), a1 the lateral engines
+    (off within +-0.5, else the left or right engine at 50-100%)."""
+
+    name = "LunarLanderContinuous-v2"
+    dim_info = DimInfo(obs_dim=8, action_dim=2, is_continue=True,
+                       max_action=1.0)
+
+    @staticmethod
+    def _engine_powers(action):
+        a = torch.clamp(action.reshape(-1, 2), -1.0, 1.0)
+        a0, a1 = a[:, 0], a[:, 1]
+        m_power = torch.where(a0 > 0.0, 0.5 + 0.5 * torch.clamp(a0, 0.0, 1.0),
+                              0.0)
+        fire_side = torch.abs(a1) > 0.5
+        s_power = torch.where(fire_side,
+                              torch.clamp(torch.abs(a1), 0.5, 1.0), 0.0)
+        direction = torch.sign(a1) * fire_side
+        return m_power, s_power, direction

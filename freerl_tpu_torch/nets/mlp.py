@@ -1,12 +1,18 @@
-"""MLP trunks with the torch init scheme (counterpart:
+"""MLP trunks and their init schemes (counterpart:
 ``freerl_tpu/nets/mlp.py``).
 
-``Dense`` keeps the JAX package's ``'torch'`` scheme: weight and bias both
-U(+-1/sqrt(fan_in)), drawn from an explicit ``torch.Generator``. The
-orthogonal and final-uniform schemes come with the slices that use them.
-Layers are created, and so initialised, in the JAX modules' order.
-Weights are stored torch-style, ``(out, in)``; flax stores ``(in, out)``
-(see ``freerl_tpu_torch/convert.py``).
+``Dense`` keeps the JAX package's init-scheme vocabulary, drawn from an
+explicit ``torch.Generator``:
+
+- ``'torch'`` and ``'fanin'``: weight and bias both U(+-1/sqrt(fan_in))
+  (the torch default, and DDPG's fan-in init for the other layers);
+- ``'final'``: weight and bias both U(+-final_scale), 3e-3 by default
+  (DDPG's final layers).
+
+The orthogonal scheme comes with the on-policy slice that uses it. Layers
+are created, and so initialised, in the JAX modules' order. Weights are
+stored torch-style, ``(out, in)``; flax stores ``(in, out)`` (see
+``freerl_tpu_torch/convert.py``).
 """
 from __future__ import annotations
 
@@ -24,15 +30,24 @@ _ACTS = {
     "gelu": F.gelu,
 }
 
+SCHEMES = ("torch", "fanin", "final")
+
 
 class Dense(nn.Module):
-    """Linear layer with the torch default init, U(+-1/sqrt(fan_in)) for
-    weight and bias."""
+    """Linear layer with an init scheme (see the module docstring)."""
 
     def __init__(self, in_features: int, features: int,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 scheme: str = "torch", final_scale: float = 3e-3):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_features)
+        if scheme == "orthogonal":
+            raise NotImplementedError(
+                "the orthogonal init comes with the on-policy slice "
+                "(ROADMAP.md queue A, slice 4)")
+        if scheme not in SCHEMES:
+            raise ValueError(f"unknown init scheme {scheme!r}")
+        bound = (final_scale if scheme == "final"
+                 else 1.0 / math.sqrt(in_features))
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
@@ -48,11 +63,13 @@ class Trunk(nn.Module):
     """The hidden layers shared by the nets below: ``Dense`` + activation."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], activation: str,
-                 generator: torch.Generator | None, device):
+                 generator: torch.Generator | None, device,
+                 scheme: str = "torch"):
         super().__init__()
         dims = [in_dim, *hidden]
         self.hidden = nn.ModuleList(
-            Dense(a, b, generator, device) for a, b in zip(dims[:-1], dims[1:])
+            Dense(a, b, generator, device, scheme)
+            for a, b in zip(dims[:-1], dims[1:])
         )
         self.act = _ACTS[activation]
         self.trunk_dim = dims[-1]
@@ -64,13 +81,17 @@ class Trunk(nn.Module):
 
 
 class MLP(Trunk):
-    """Trunk + linear head. hidden=(128,) matches the reference default."""
+    """Trunk + linear head. hidden=(128,) matches the reference default;
+    ``scheme`` inits the hidden layers, ``out_scheme`` (default: the same)
+    the head."""
 
     def __init__(self, in_dim: int, out_dim: int, hidden: Sequence[int] = (128,),
                  activation: str = "relu",
-                 generator: torch.Generator | None = None, device="cuda"):
-        super().__init__(in_dim, hidden, activation, generator, device)
-        self.head = Dense(self.trunk_dim, out_dim, generator, device)
+                 generator: torch.Generator | None = None, device="cuda",
+                 scheme: str = "torch", out_scheme: str | None = None):
+        super().__init__(in_dim, hidden, activation, generator, device, scheme)
+        self.head = Dense(self.trunk_dim, out_dim, generator, device,
+                          out_scheme or scheme)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(x))

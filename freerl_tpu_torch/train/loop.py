@@ -61,16 +61,22 @@ class LoopCarry:
     update_count: int = 0          # (host)
 
 
-def example_transition(env: Env) -> Transition:
+def example_transition(env: Env, algo=None) -> Transition:
+    """One transition with no batch dim, to allocate the replay ring: a
+    float (action_dim,) action for continuous envs, the algo's
+    ``stored_action_example()`` where it stores something richer than the
+    env's index (discrete DDPG), else an int32 index."""
     di = env.dim_info
-    if di.is_continue:
-        raise NotImplementedError(
-            "continuous actions wait for ROADMAP.md queue A, slice 3"
-        )
     dev = env.device
+    if di.is_continue:
+        action = torch.zeros(di.action_dim, dtype=torch.float32, device=dev)
+    elif hasattr(algo, "stored_action_example"):
+        action = algo.stored_action_example().to(dev)
+    else:
+        action = torch.zeros((), dtype=torch.int32, device=dev)
     return Transition(
         obs=torch.zeros(di.obs_dim, dtype=torch.float32, device=dev),
-        action=torch.zeros((), dtype=torch.int32, device=dev),
+        action=action,
         reward=torch.zeros((), dtype=torch.float32, device=dev),
         next_obs=torch.zeros(di.obs_dim, dtype=torch.float32, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),
@@ -101,14 +107,22 @@ def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,
         done_prev=c.done_prev,
         random_steps=cfg.random_steps,
     )
-    c.algo_state, action = algo.explore(c.algo_state, c.obs, generator, ctx)
+    if hasattr(algo, "explore_stored"):
+        # the env acts on ``action``, the buffer keeps ``stored`` (discrete
+        # DDPG: a sampled index, and the behaviour probs or one-hot)
+        c.algo_state, action, stored = algo.explore_stored(
+            c.algo_state, c.obs, generator, ctx)
+    else:
+        c.algo_state, action = algo.explore(c.algo_state, c.obs, generator,
+                                            ctx)
+        stored = action
     out = vec_step_auto_reset(env, c.env_state, action, generator, num_envs)
     c.algo_state, next_obs, carry_obs = algo.process_obs(
         c.algo_state, out.next_obs, out.carry_obs
     )
     dones = out.episode_done
     c.buffer = c.buffer.add(Transition(
-        obs=c.obs, action=action, reward=out.reward, next_obs=next_obs,
+        obs=c.obs, action=stored, reward=out.reward, next_obs=next_obs,
         done=out.terminated, episode_done=dones,
     ))
 
@@ -132,10 +146,12 @@ def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,
 
 def train_offpolicy(env: Env, algo, cfg: OffPolicyConfig,
                     on_chunk: Optional[Callable] = None):
-    """Generic off-policy driver. ``algo`` must expose ``init(generator)``,
-    ``make_buffer(example, num_envs)``, ``explore(state, obs, generator,
-    ctx)``, ``process_obs`` and ``learn_step(state, buffer, generator,
-    num_envs)``; ``env`` and ``algo`` must share a device.
+    """Generic off-policy training loop for the DQN, DDPG, TD3 and SAC
+    families.
+    ``algo`` must expose ``init(generator)``, ``make_buffer(example,
+    num_envs)``, ``explore(state, obs, generator, ctx)`` (or
+    ``explore_stored``), ``process_obs`` and ``learn_step(state, buffer,
+    generator, num_envs)``; ``env`` and ``algo`` must share a device.
 
     Returns ``(algo_state, episode_returns ndarray, info dict)``.
     """
@@ -156,7 +172,8 @@ def train_offpolicy(env: Env, algo, cfg: OffPolicyConfig,
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
     algo_state = algo.init(generator)
-    buffer = algo.make_buffer(example_transition(env), num_envs=num_envs)
+    buffer = algo.make_buffer(example_transition(env, algo),
+                              num_envs=num_envs)
     env_state, obs = vec_reset(env, generator, num_envs)
     carry = LoopCarry(
         algo_state=algo_state,

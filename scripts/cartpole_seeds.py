@@ -1,12 +1,16 @@
-"""The spread of ``chip_smoke.py``'s CartPole learning check over seeds.
+"""The spread over seeds of ``chip_smoke.py``'s learning checks.
 
-    python3 scripts/cartpole_seeds.py [--device cpu] [--seeds 0-19]
+    python3 scripts/cartpole_seeds.py [--recipe cartpole|sac_pendulum]
+                                      [--device cpu] [--seeds 0-19]
 
-Runs the check's configuration (DQN, replay 20,000, batch 64, 8 envs,
-4 updates per vector step, 250 episodes) once per seed and prints one JSON
-line per seed with the mean return of the first 10 and the last 30
-episodes, then one line with the smallest and largest last-30 mean. The
-check's threshold is set below that spread.
+``cartpole`` (the default) runs the CartPole check's configuration (DQN,
+replay 20,000, batch 64, 8 envs, 4 updates per vector step, 250 episodes)
+and reads the mean return of the first 10 and the last 30 episodes.
+``sac_pendulum`` runs the SAC Pendulum check's (the JAX package's recipe
+of ``tests/test_continuous.py``: SAC, replay 50,000, 8 envs, start and
+random steps 1000, 4 updates per vector step, 120 episodes) and reads the
+first and the last 20. One JSON line per seed, then one with the smallest
+and largest "last" mean. A check's threshold is set below that spread.
 """
 from __future__ import annotations
 
@@ -19,34 +23,48 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from freerl_tpu_torch.algos import DQN, DQNConfig  # noqa: E402
+from freerl_tpu_torch.algos import DQN, SAC, DQNConfig, SACConfig  # noqa: E402
 from freerl_tpu_torch.envs import make  # noqa: E402
 from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy  # noqa: E402
+
+RECIPES = {
+    # env, algo, config, loop config, episodes read at each end
+    "cartpole": ("CartPole-v1", DQN, DQNConfig(buffer_size=20_000,
+                                               batch_size=64),
+                 dict(num_envs=8, max_episodes=250, start_steps=500,
+                      updates_per_burst=4, chunk_size=128), (10, 30)),
+    "sac_pendulum": ("Pendulum-v1", SAC, SACConfig(buffer_size=50_000,
+                                                   num_envs=8),
+                     dict(num_envs=8, max_episodes=120, start_steps=1000,
+                          random_steps=1000, updates_per_burst=4,
+                          chunk_size=100), (20, 20)),
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--recipe", choices=sorted(RECIPES), default="cartpole")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seeds", default="0-19", help="first-last, inclusive")
     args = ap.parse_args()
     first, last = (int(x) for x in args.seeds.split("-"))
     if args.device == "cpu":
         torch.set_num_threads(1)
+    env_name, algo_cls, algo_cfg, loop, (n_first, n_last) = RECIPES[args.recipe]
     means = []
     for seed in range(first, last + 1):
-        env = make("CartPole-v1", device=args.device)
-        algo = DQN(env.dim_info, DQNConfig(buffer_size=20_000, batch_size=64),
-                   device=args.device)
-        cfg = OffPolicyConfig(seed=seed, num_envs=8, max_episodes=250,
-                              start_steps=500, updates_per_burst=4,
-                              chunk_size=128)
+        env = make(env_name, device=args.device)
+        algo = algo_cls(env.dim_info, algo_cfg, device=args.device)
+        cfg = OffPolicyConfig(seed=seed, **loop)
         _, returns, info = train_offpolicy(env, algo, cfg)
-        means.append(float(returns[-30:].mean()))
-        print(json.dumps({"seed": seed, "first10": float(returns[:10].mean()),
-                          "last30": means[-1],
+        means.append(float(returns[-n_last:].mean()))
+        print(json.dumps({"seed": seed,
+                          f"first{n_first}": float(returns[:n_first].mean()),
+                          f"last{n_last}": means[-1],
                           "env_steps": info["env_steps"]}), flush=True)
-    print(json.dumps({"device": args.device, "seeds": args.seeds,
-                      "last30_min": min(means), "last30_max": max(means)}))
+    print(json.dumps({"recipe": args.recipe, "device": args.device,
+                      "seeds": args.seeds, f"last{n_last}_min": min(means),
+                      f"last{n_last}_max": max(means)}))
     return 0
 
 

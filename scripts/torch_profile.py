@@ -1,13 +1,14 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-    python3 scripts/torch_profile.py [--config per|uniform|rainbow]
+    python3 scripts/torch_profile.py [--config per|uniform|rainbow|ddpg|td3|sac]
                                      [--num-envs 1024] [--steps 32]
 
-Builds the DQN LunarLander actor-learner loop of ``train_offpolicy`` at
-full width (8-128-4 net, buffer 1e6, batch 256) with PER on the sum-tree
-sampler (``per``, the default), uniform replay (``uniform``) or all six
-tricks (``rainbow``: double, dueling, PER tree, noisy, 3-step, C51), warms
-it up for one chunk, then:
+Builds the actor-learner loop of ``train_offpolicy`` at full width (buffer
+1e6, batch 256): DQN on LunarLander-v2 (8-128-4 net) with PER on the
+sum-tree sampler (``per``, the default), uniform replay (``uniform``) or
+all six tricks (``rainbow``: double, dueling, PER tree, noisy, 3-step,
+C51); or DDPG, TD3 or SAC on LunarLanderContinuous-v2 (the configs'
+defaults, 2x128 nets). It warms the loop up for one chunk, then:
 
 1. times ``--steps`` vector steps as the loop runs them (no sync inside);
 2. times each phase of a vector step (explore, env step, replay add,
@@ -34,15 +35,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from freerl_tpu_torch.algos import DQN, DQNConfig  # noqa: E402
+from freerl_tpu_torch import algos  # noqa: E402
 from freerl_tpu_torch.train import loop  # noqa: E402
 from freerl_tpu_torch.envs import make  # noqa: E402
 
+# config: (env, algo, config keywords)
 CONFIGS = {
-    "per": dict(per=True),
-    "uniform": dict(per=False),
-    "rainbow": dict(double=True, dueling=True, per=True, noisy=True,
-                    n_step=3, categorical=True),
+    "per": ("LunarLander-v2", "DQN", dict(per=True, per_sampler="tree")),
+    "uniform": ("LunarLander-v2", "DQN", dict(per=False)),
+    "rainbow": ("LunarLander-v2", "DQN",
+                dict(double=True, dueling=True, per=True, per_sampler="tree",
+                     noisy=True, n_step=3, categorical=True)),
+    "ddpg": ("LunarLanderContinuous-v2", "DDPG", dict(batch_size=256)),
+    "td3": ("LunarLanderContinuous-v2", "TD3", dict(batch_size=256)),
+    "sac": ("LunarLanderContinuous-v2", "SAC", dict(batch_size=256)),
 }
 
 
@@ -61,9 +67,13 @@ def main() -> int:
     ).stdout.strip()
     label = args.config
 
-    env = make("LunarLander-v2", device="cuda")
-    algo = DQN(env.dim_info, DQNConfig(per_sampler="tree", **CONFIGS[label]),
-               device="cuda")
+    env_name, algo_name, kwargs = CONFIGS[label]
+    env = make(env_name, device="cuda")
+    if algo_name != "DQN":
+        kwargs = dict(kwargs, num_envs=args.num_envs)
+    algo = getattr(algos, algo_name)(
+        env.dim_info, getattr(algos, algo_name + "Config")(**kwargs),
+        device="cuda")
     cfg = loop.OffPolicyConfig(num_envs=args.num_envs, start_steps=500,
                                chunk_size=64, max_episodes=10**9)
     generator = torch.Generator(device="cuda").manual_seed(0)
@@ -71,7 +81,8 @@ def main() -> int:
     record_cap = 10**6
     carry = loop.LoopCarry(
         algo_state=algo.init(generator),
-        buffer=algo.make_buffer(loop.example_transition(env), num_envs=n),
+        buffer=algo.make_buffer(loop.example_transition(env, algo),
+                                num_envs=n),
         env_state=None, obs=None,
         ep_return=torch.zeros(n, device="cuda"),
         done_prev=torch.zeros(n, dtype=torch.bool, device="cuda"),
