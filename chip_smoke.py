@@ -33,10 +33,17 @@ Phases (any failure raises, and the script exits non-zero):
    through ``dis_to_con`` (16 bins), each trained by DQN with double,
    dueling and uniform 3-step replay for 224 vector steps; returns must lie
    in each env's range (an untrained MountainCar episode ends at -200);
-9. a learning check: DQN on CartPole-v1, 8 envs, 4 updates per step,
-   250 episodes, seed 0; the mean return of the last 30 episodes must
-   clear ``CARTPOLE_THRESHOLD``;
-10. print one JSON line describing each kernel, the card line, and the
+9. the continuous family on the card against the CPU: five updates of
+   each of the nine DDPG / TD3 / SAC variants at full width, 200 steps of
+   LunarLanderContinuous at 1024 envs, and ``relabel_future``;
+10. DDPG, TD3 and SAC on LunarLanderContinuous-v2 at full width, 1024
+    envs, 256 vector steps; discrete DDPG (softmax and Gumbel actors) and
+    discrete SAC on CartPole-v1; ``train_her`` with DDPG on
+    GoalPendulum-v1; none of them launches the sum-tree kernel;
+11. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+    on Pendulum-v1), seed 0: the mean return of the last episodes must
+    clear each recipe's threshold;
+12. print one JSON line describing each kernel, the card line, and the
     result line.
 
 It needs no network and builds everything from the checkout.
@@ -1021,60 +1028,51 @@ def phase_her() -> int:
     return r["launches"]
 
 
-# the port on the CPU, this configuration, seeds 0-19, read 40.1-431.9 as
-# the mean of the last 30 of 250 episodes, three seeds under 60
-# (scripts/cartpole_seeds.py --device cpu); a uniform-random policy
-# averages about 22. The JAX package's recipe expects more than 60.
-CARTPOLE_THRESHOLD = 30.0
+# The learning checks, one recipe each: the env, the algo, its config's and
+# the loop config's fields, the episodes read at each end, and the threshold
+# the mean of the last ones must clear. scripts/learning_seeds.py runs these
+# same recipes over seeds; each threshold is set from that spread.
+LEARNING_CHECKS = {
+    # the port on the CPU, seeds 0-19, read 40.1-431.9 as the mean of the
+    # last 30 of 250 episodes, three seeds under 60; a uniform-random policy
+    # averages about 22. The JAX package's recipe expects more than 60.
+    "cartpole": dict(
+        env="CartPole-v1", algo="DQN",
+        algo_cfg=dict(buffer_size=20_000, batch_size=64),
+        loop=dict(num_envs=8, max_episodes=250, start_steps=500,
+                  updates_per_burst=4, chunk_size=128),
+        read=(10, 30), threshold=30.0),
+    # the JAX package's recipe and threshold (tests/test_continuous.py:
+    # 149-159); the port on the CPU, seeds 0-19, clears it in every seed
+    "sac_pendulum": dict(
+        env="Pendulum-v1", algo="SAC",
+        algo_cfg=dict(buffer_size=50_000, num_envs=8),
+        loop=dict(num_envs=8, max_episodes=120, start_steps=1000,
+                  random_steps=1000, updates_per_burst=4, chunk_size=100),
+        read=(20, 20), threshold=-500.0),
+}
 
 
-def phase_learning():
-    from freerl_tpu_torch.algos import DQNConfig
+def phase_learning(name: str):
+    """The learning check ``LEARNING_CHECKS[name]`` on the card, seed 0."""
     from freerl_tpu_torch.train import OffPolicyConfig
 
-    cfg = OffPolicyConfig(seed=0, num_envs=8, max_episodes=250,
-                          start_steps=500, updates_per_burst=4,
-                          chunk_size=128)
-    r = drive("CartPole-v1", DQNConfig(buffer_size=20_000, batch_size=64),
-              cfg)
-    returns = r["returns"]
-    first, last = float(returns[:10].mean()), float(returns[-30:].mean())
-    log(f"[learning CartPole-v1] {len(returns)} episodes, "
-        f"{r['info']['env_steps']} env steps in {r['info']['elapsed_s']:.1f} "
-        f"s: first 10 episodes {first:.1f}, last 30 {last:.1f} (threshold "
-        f"{CARTPOLE_THRESHOLD})")
-    if len(returns) != 250 or not last > CARTPOLE_THRESHOLD:
-        raise AssertionError(f"CartPole did not learn: last 30 mean {last}")
-
-
-# the JAX package's threshold for this recipe
-# (tests/test_continuous.py:149-159); the port on the CPU, seeds 0-19,
-# clears it in every seed (scripts/cartpole_seeds.py --recipe sac_pendulum)
-SAC_PENDULUM_THRESHOLD = -500.0
-
-
-def phase_learning_sac():
-    """SAC on Pendulum-v1 with the JAX package's recipe: 8 envs, 120
-    episodes, start and random steps 1000, 4 updates per vector step,
-    replay 50,000, seed 0; the mean return of the last 20 episodes must
-    clear ``SAC_PENDULUM_THRESHOLD``."""
-    from freerl_tpu_torch.algos import SAC, SACConfig
-    from freerl_tpu_torch.train import OffPolicyConfig
-
-    cfg = OffPolicyConfig(seed=0, num_envs=8, max_episodes=120,
-                          start_steps=1000, random_steps=1000,
-                          updates_per_burst=4, chunk_size=100)
-    r = drive("Pendulum-v1", SACConfig(buffer_size=50_000, num_envs=8), cfg,
-              algo_cls=SAC)
-    returns = r["returns"]
-    first, last = float(returns[:20].mean()), float(returns[-20:].mean())
-    log(f"[learning Pendulum-v1 SAC] {len(returns)} episodes, "
-        f"{r['info']['env_steps']} env steps, {r['info']['updates']} learner "
-        f"steps in {r['info']['elapsed_s']:.1f} s (learner step "
-        f"{r['learn_ms']:.3f} ms): first 20 episodes {first:.1f}, last 20 "
-        f"{last:.1f} (threshold {SAC_PENDULUM_THRESHOLD})")
-    if len(returns) < 100 or not last > SAC_PENDULUM_THRESHOLD:
-        raise AssertionError(f"SAC did not learn Pendulum: last 20 mean {last}")
+    rec = LEARNING_CHECKS[name]
+    algo_cls, cfg_cls = algo_classes(rec["algo"])
+    r = drive(rec["env"], cfg_cls(**rec["algo_cfg"]),
+              OffPolicyConfig(seed=0, **rec["loop"]), algo_cls=algo_cls)
+    returns, info = r["returns"], r["info"]
+    (n_first, n_last), threshold = rec["read"], rec["threshold"]
+    first = float(returns[:n_first].mean())
+    last = float(returns[-n_last:].mean())
+    log(f"[learning {rec['env']} {rec['algo']}] {len(returns)} episodes, "
+        f"{info['env_steps']} env steps, {info['updates']} learner steps in "
+        f"{info['elapsed_s']:.1f} s (learner step {r['learn_ms']:.3f} ms): "
+        f"first {n_first} episodes {first:.1f}, last {n_last} {last:.1f} "
+        f"(threshold {threshold})")
+    if len(returns) != rec["loop"]["max_episodes"] or not last > threshold:
+        raise AssertionError(f"{rec['algo']} did not learn {rec['env']}: "
+                             f"last {n_last} mean {last}")
 
 
 # ---------------------------------------------------------------------------
@@ -1104,8 +1102,8 @@ def main() -> int:
     kernel["launches_continuous"] = (
         sum(c["launches"] for c in continuous.values())
         + phase_discrete_actor_critic() + phase_her())
-    phase_learning()
-    phase_learning_sac()
+    for name in LEARNING_CHECKS:
+        phase_learning(name)
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [kernel]}))

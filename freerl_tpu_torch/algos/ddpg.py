@@ -144,7 +144,6 @@ class DDPGConfig:
     # discrete variant: the Gumbel-softmax straight-through actor instead
     # of the softmax-probability actor
     discrete_gumbel: bool = False
-    gumbel_temperature: float = 1.0
     # OU parameters
     ou_theta: float = 0.15
     ou_sigma: float = 1.0

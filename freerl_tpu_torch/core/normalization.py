@@ -110,7 +110,6 @@ class PopArt:
     mean: torch.Tensor
     var: torch.Tensor
     count: torch.Tensor
-    beta: float = 3e-4
 
     @classmethod
     def create(cls, shape=(), device="cuda") -> "PopArt":
@@ -139,7 +138,7 @@ class PopArt:
         m2 = self.var * self.count + b_var * b_count + torch.square(delta) * (
             self.count * b_count / tot
         )
-        new = PopArt(mean=new_mean, var=m2 / tot, count=tot, beta=self.beta)
+        new = PopArt(mean=new_mean, var=m2 / tot, count=tot)
         scale = old_std / new.std
         shift = (old_mean - new.mean) / new.std
         return new, scale, shift
