@@ -40,11 +40,23 @@ Phases (any failure raises, and the script exits non-zero):
     envs, 256 vector steps; discrete DDPG (softmax and Gumbel actors) and
     discrete SAC on CartPole-v1; ``train_her`` with DDPG on
     GoalPendulum-v1; none of them launches the sum-tree kernel;
-11. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
-    on Pendulum-v1), seed 0: the mean return of the last episodes must
-    clear each recipe's threshold;
-12. print one JSON line describing each kernel, the card line, and the
-    result line.
+11. the on-policy slice on the card against the CPU: ``gae`` on a
+    64 x 1024 rollout, one full update at full width (2x128) of each PPO
+    branch (Gaussian, discrete, Beta, all tricks, ``recompute_logp``,
+    ``std_decay``), one REINFORCE update, and 100 teacher-forced
+    auto-resetting BipedalWalker steps at 256 envs;
+12. train_onpolicy at 1024 envs for 2 iterations: PPO (its defaults,
+    2x128, T 16) on BipedalWalker-v3, PPO with reward_scaling on
+    CartPole-v1 (T 16), REINFORCE on CartPole-v1 (T 64);
+    the episode record must equal the RAW rewards' sums, REINFORCE must
+    take one Adam step per filled episode slot, and none of them launches
+    the sum-tree kernel;
+13. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+    on Pendulum-v1, PPO on CartPole-v1), seed 0: the mean return of the
+    last episodes must clear each recipe's threshold;
+14. print one JSON line describing each kernel (with its launches on the
+    main path, and on the Rainbow, continuous and on-policy paths), the
+    card line, and the result line.
 
 It needs no network and builds everything from the checkout.
 """
@@ -1028,10 +1040,332 @@ def phase_her() -> int:
     return r["launches"]
 
 
+# ---------------------------------------------------------------------------
+def phase_card_vs_cpu_onpolicy():
+    """The on-policy slice on the card against the CPU, from identical
+    inputs and draws: ``gae``; one full PPO update of each branch at full
+    width (2x128); one REINFORCE update; 100 teacher-forced auto-resetting
+    steps of BipedalWalker at 256 envs."""
+    from freerl_tpu_torch.algos import (PPO, REINFORCE, PPOConfig,
+                                        REINFORCEConfig, Rollout)
+    from freerl_tpu_torch.algos.common import gae
+    from freerl_tpu_torch.envs import make, step_auto_reset, vec_reset
+
+    rng = np.random.RandomState(3)
+    devs = ("cpu", "cuda")
+    errs = {}
+
+    def on(dev, x):
+        return torch.as_tensor(x).to(dev)
+
+    def rel_err(got):
+        a, b = got["cpu"].double(), got["cuda"].double().cpu()
+        return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+    # gae over a (64, 1024) rollout: the tests' float32 tolerance, relative
+    t, n = 64, 1024
+    ins = [rng.randn(t, n).astype(np.float32) for _ in range(3)]
+    dead = rng.rand(t, n) < 0.02
+    ends = dead | (rng.rand(t, n) < 0.02)
+    errs["gae"] = rel_err({dev: torch.cat(gae(
+        *[on(dev, x) for x in ins], on(dev, dead), on(dev, ends), 0.99, 0.95))
+        for dev in devs})
+    if errs["gae"] > 1e-5:
+        raise AssertionError(f"gae card vs CPU: {errs['gae']}")
+
+    # one full update per PPO branch at full width: T 16, N 16, minibatch
+    # 64, 10 epochs (40 Adam steps, as in the tests), same params,
+    # rollout, permutations and episode count on both devices
+    walker = make("BipedalWalker-v3", device="cpu").dim_info
+    cartpole = make("CartPole-v1", device="cpu").dim_info
+    t, n = 16, 16
+    branches = {
+        "gauss": (walker, dict(), None),
+        "discrete": (cartpole, dict(), None),
+        "beta": (walker, dict(beta_dist=True), None),
+        "all_tricks": (walker, dict(adv_norm=True, obs_norm=True,
+                                    reward_scaling=True, lr_decay=True,
+                                    orthogonal_init=True, adam_eps=True,
+                                    tanh=True, num_envs=n), 10),
+        "recompute_logp": (walker, dict(recompute_logp=True), None),
+        "std_decay": (walker, dict(std_decay=True), 50),
+    }
+    for name, (di, extra, episodes) in branches.items():
+        cfg = PPOConfig(horizon=t * n, num_envs=extra.pop("num_envs", 1),
+                        **extra)
+        if not di.is_continue:
+            action = rng.randint(0, di.action_dim, (t, n))
+        elif cfg.beta_dist:
+            action = rng.uniform(0.02, 0.98, (t, n, di.action_dim))
+        else:
+            action = rng.uniform(-1, 1, (t, n, di.action_dim))
+        done = rng.rand(t, n) < 0.05
+        roll_np = dict(
+            obs=rng.randn(t, n, di.obs_dim).astype(np.float32),
+            action=action.astype(np.int64 if not di.is_continue
+                                 else np.float32),
+            log_pi=(rng.randn(t, n) * 0.1 - 1.0).astype(np.float32),
+            reward=rng.randn(t, n).astype(np.float32),
+            next_obs=rng.randn(t, n, di.obs_dim).astype(np.float32),
+            done=done, adv_done=done | (rng.rand(t, n) < 0.05))
+        cpu_algo = PPO(di, cfg, device="cpu")
+        init = cpu_algo.init(torch.Generator().manual_seed(0))
+        cpu_roll = Rollout(**{k: torch.as_tensor(v)
+                              for k, v in roll_np.items()})
+        perms = cpu_algo.draw_update(cpu_roll, torch.Generator().manual_seed(1))
+        out = {}
+        for dev in devs:
+            algo = PPO(di, cfg, device=dev)
+            st = algo.init(torch.Generator(device=dev).manual_seed(0))
+            st.actor.load_state_dict(init.actor.state_dict())
+            st.critic.load_state_dict(init.critic.state_dict())
+            st, m = algo.update(
+                st, to_device(cpu_roll, dev), perms.to(dev),
+                None if episodes is None else torch.tensor(episodes,
+                                                           device=dev))
+            out[dev] = torch.cat(
+                [p.detach().flatten() for p in st.actor.parameters()]
+                + [p.detach().flatten() for p in st.critic.parameters()]
+                + [st.ext_std.reshape(1), m["adv_mean"].reshape(1)]).cpu()
+        err = float((out["cpu"] - out["cuda"]).abs().max())
+        errs[f"ppo_{name}"] = err
+        if not err <= 1e-5:
+            raise AssertionError(f"PPO {name} update card vs CPU: max abs "
+                                 f"err {err}")
+
+    # one REINFORCE update at its full width (128 hidden), T 64, N 16
+    t, n = 64, 16
+    ends = rng.rand(t, n) < 0.05
+    roll_np = dict(
+        obs=rng.randn(t, n, 4).astype(np.float32),
+        action=rng.randint(0, 2, (t, n)), log_pi=np.zeros((t, n), np.float32),
+        reward=np.ones((t, n), np.float32),
+        next_obs=rng.randn(t, n, 4).astype(np.float32),
+        done=ends, adv_done=ends)
+    init = REINFORCE(cartpole, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    out = {}
+    for dev in devs:
+        algo = REINFORCE(cartpole, REINFORCEConfig(), device=dev)
+        st = algo.init(torch.Generator(device=dev).manual_seed(0))
+        st.policy.load_state_dict(init.policy.state_dict())
+        st, m = algo.update(st, Rollout(**{k: on(dev, v)
+                                           for k, v in roll_np.items()}))
+        out[dev] = (torch.cat([p.detach().flatten().cpu()
+                               for p in st.policy.parameters()]),
+                    adam_steps(st.opt))
+    errs["reinforce"] = float((out["cpu"][0] - out["cuda"][0]).abs().max())
+    if errs["reinforce"] > 1e-5 or out["cpu"][1] != out["cuda"][1]:
+        raise AssertionError(f"REINFORCE update card vs CPU: "
+                             f"{errs['reinforce']}, Adam steps "
+                             f"{out['cpu'][1]} / {out['cuda'][1]}")
+
+    # BipedalWalker: 100 auto-resetting steps of 256 envs, the card's step
+    # from the CPU's state with the CPU's draws each time. The tests'
+    # tolerance (rtol 1e-5 / atol 2e-5) on every row; a stiff step (a
+    # crash) may amplify rounding, so up to 0.5% of the row-steps may
+    # differ by up to 5e-3, and 0.1% of the done flags may flip
+    env = {dev: make("BipedalWalker-v3", device=dev) for dev in devs}
+    gen = torch.Generator().manual_seed(0)
+    b, steps = 256, 100
+    state, _ = vec_reset(env["cpu"], gen, b)
+    flips, stiff, worst, stiff_worst = 0, 0, 0.0, 0.0
+    fields = ("next_obs", "carry_obs", "reward")
+    for _ in range(steps):
+        action = torch.rand(b, 4, generator=gen) * 2.0 - 1.0
+        reset_draw = env["cpu"].draw_reset(b, gen)
+        cpu = step_auto_reset(env["cpu"], state, action, None, reset_draw)
+        card = step_auto_reset(env["cuda"], to_device(state, "cuda"),
+                               action.cuda(), None, reset_draw.cuda())
+        same = cpu.episode_done == card.episode_done.cpu()
+        flips += int((~same).sum())
+        a, c = (torch.cat(
+            [getattr(out, f).reshape(b, -1).cpu() for f in fields]
+            + [getattr(out.state, f.name).reshape(b, -1).float().cpu()
+               for f in dataclasses.fields(out.state)], 1)[same]
+            for out in (cpu, card))
+        err = (a - c).abs()
+        off = ~(err <= 2e-5 + 1e-5 * c.abs()).all(1)
+        stiff += int(off.sum())
+        worst = max(worst, float(err[~off].max()) if bool((~off).any())
+                    else 0.0)
+        stiff_worst = max(stiff_worst, float(err.max()))
+        state = cpu.state
+    errs["bipedal_steps"] = worst
+    if (stiff > 0.005 * b * steps or stiff_worst > 5e-3
+            or flips > 0.001 * b * steps):
+        raise AssertionError(
+            f"BipedalWalker card vs CPU: {stiff} stiff row-steps (worst "
+            f"{stiff_worst}), {flips} done flags differ")
+    log(f"[card-vs-cpu onpolicy] gae (64 x 1024), one full-width update of "
+        f"each PPO branch, one REINFORCE update, BipedalWalker {steps} "
+        f"teacher-forced steps x {b}: ok; max errs {json.dumps(errs)}; "
+        f"BipedalWalker row-steps past the tests' tolerance {stiff} of "
+        f"{b * steps} (worst {stiff_worst:.3e}), done flags that differ "
+        f"{flips}")
+
+
+def adam_steps(opt: torch.optim.Optimizer) -> int:
+    """The Adam steps an optimizer has taken (its first param's count; a
+    host tensor, so reading it costs no device sync)."""
+    for st in opt.state.values():
+        return int(st["step"])
+    return 0
+
+
+def onpolicy_probe(algo_cls):
+    """``algo_cls`` keeping what the on-policy checks read: each update's
+    metrics, CUDA events, Adam steps and episode-end flags, and each
+    vector step's RAW reward, flags and stored reward as
+    ``process_reward`` sees them (no device sync)."""
+    class Probe(algo_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.metrics, self.events, self.steps, self.windows = [], [], [], []
+            self.raw, self.stored = [], []
+
+        def process_reward(self, state, reward, episode_done):
+            state, stored = super().process_reward(state, reward,
+                                                   episode_done)
+            self.raw.append((reward.clone(), episode_done.clone()))
+            self.stored.append(stored.clone())
+            return state, stored
+
+        def update(self, state, rollout, draws, episodes=None):
+            before = adam_steps(state.opt)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = super().update(state, rollout, draws, episodes)
+            end.record()
+            self.events.append((start, end))
+            self.metrics.append(metrics)
+            self.steps.append(adam_steps(state.opt) - before)
+            self.windows.append(rollout.adv_done.clone())
+            return state, metrics
+
+    return Probe
+
+
+def expected_record(raw: list) -> np.ndarray:
+    """The episode record the loop should write from the RAW rewards:
+    each env's float32 running sum, recorded where its episode ends, in
+    the order episodes end (env order within a step)."""
+    run, out = None, []
+    for reward, done in raw:
+        reward, done = reward.cpu(), done.cpu()
+        run = reward.clone() if run is None else run + reward
+        out.append(run[done])
+        run = torch.where(done, 0.0, run)
+    return torch.cat(out).numpy()
+
+
+def drive_onpolicy(env_name: str, algo_name: str, algo_cfg, loop_cfg,
+                   lo: float, hi: float) -> dict:
+    """train_onpolicy on the card through the user's entry points, checked
+    by ``check_onpolicy``."""
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import train_onpolicy
+
+    env = make(env_name, device="cuda")
+    algo = onpolicy_probe(algo_classes(algo_name)[0])(
+        env.dim_info, algo_cfg, device="cuda")
+    label = f"{env_name} {algo_name}"
+    r = run_probed(lambda: train_onpolicy(env, algo, loop_cfg), env, algo,
+                   label)
+    return check_onpolicy(r, loop_cfg, lo, hi, label)
+
+
+def check_onpolicy(r: dict, loop_cfg, lo: float, hi: float,
+                   label: str) -> dict:
+    """Checks a probed train_onpolicy run: the episode record against the
+    RAW rewards, returns in [lo, hi], one update per iteration and no
+    sum-tree launch (finite losses: ``run_probed``). Adds the mean ms per
+    vector step and prints the run's numbers."""
+    algo, info, returns = r["algo"], r["info"], r["returns"]
+    want = expected_record(algo.raw)[:len(returns)]
+    if (len(returns) != min(info["episodes"], loop_cfg.max_episodes)
+            or not np.array_equal(returns, want)):
+        raise AssertionError(f"{label}: the record is not the RAW rewards' "
+                             f"({len(returns)} episodes, {info})")
+    if len(returns) and not (returns.min() >= lo and returns.max() <= hi):
+        raise AssertionError(f"{label}: returns {returns.min()} .. "
+                             f"{returns.max()} outside [{lo}, {hi}]")
+    if len(algo.metrics) != info["iterations"] or r["launches"]:
+        raise AssertionError(f"{label}: {len(algo.metrics)} updates for "
+                             f"{info}, {r['launches']} sum-tree launches")
+    # device time from the end of one update to the start of the next is
+    # that iteration's rollout
+    t = loop_cfg.horizon // loop_cfg.num_envs
+    gaps = [algo.events[i - 1][1].elapsed_time(algo.events[i][0])
+            for i in range(1, len(algo.events))]
+    r["vector_step_ms"] = float(np.mean(gaps)) / t if gaps else float("nan")
+    log(f"[onpolicy {label}] {info['env_steps']} env steps, "
+        f"{info['iterations']} updates, {info['episodes']} episodes "
+        f"(returns {returns.min() if len(returns) else 'none'} .. "
+        f"{returns.max() if len(returns) else 'none'}) in "
+        f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
+        f"env-steps/s, update {r['learn_ms']:.3f} ms, vector step "
+        f"{r['vector_step_ms']:.3f} ms, peak memory {r['peak_mib']:.1f} MiB, "
+        f"{sum(algo.steps)} Adam steps, finite {r['checked']}, record == "
+        f"RAW rewards' ({len(returns)} episodes), sumtree launches "
+        f"{r['launches']}")
+    return r
+
+
+def phase_onpolicy() -> int:
+    """PPO on BipedalWalker-v3 at full width (PPOConfig's defaults, the
+    golden row PPO_10_seed's settings), PPO on CartPole-v1 (with
+    reward_scaling, so the stored rewards are not the recorded ones) and
+    REINFORCE on CartPole-v1, each through train_onpolicy at 1024 envs
+    for 2 iterations (T 16 for PPO, T 64 for REINFORCE). Returns the
+    sum-tree launches (0 expected)."""
+    from freerl_tpu_torch.algos import PPOConfig, REINFORCEConfig
+    from freerl_tpu_torch.train import OnPolicyConfig
+
+    def loop(t, iterations=2):
+        return OnPolicyConfig(seed=0, num_envs=1024, horizon=1024 * t,
+                              max_episodes=10**9,
+                              max_env_steps=1024 * t * iterations)
+
+    launches = 0
+    # a walker episode's return: -100 at a crash, the torque cost (at most
+    # 0.112 a step) and the shaping's change, within +-(130 * 200 * 14 /
+    # 30 / 30 + 5 pi) over the terrain. An untrained walker's first
+    # crashes come after about 47 steps, so these 32 steps may finish no
+    # episode; the card-against-CPU phase steps walkers through crashes
+    # and resets, and the CartPole paths below check the record
+    r = drive_onpolicy("BipedalWalker-v3", "PPO",
+                       PPOConfig(horizon=16384, num_envs=1024), loop(16),
+                       -400.0, 400.0)
+    launches += r["launches"]
+    onpolicy = {"ppo_bipedal": r}
+    r = drive_onpolicy("CartPole-v1", "PPO",
+                       PPOConfig(horizon=16384, num_envs=1024,
+                                 reward_scaling=True), loop(16), 1.0, 500.0)
+    raw = torch.stack([x for x, _ in r["algo"].raw])
+    if torch.equal(raw, torch.stack(r["algo"].stored)):
+        raise AssertionError("PPO CartPole reward_scaling stored RAW rewards")
+    launches += r["launches"]
+    onpolicy["ppo_cartpole"] = r
+    r = drive_onpolicy("CartPole-v1", "REINFORCE", REINFORCEConfig(),
+                       loop(64), 1.0, 500.0)
+    cap = REINFORCEConfig().max_eps_per_update
+    for steps, ends in zip(r["algo"].steps, r["algo"].windows):
+        n_done = ends.sum(0).tolist()
+        filled = sum(1 for k in range(cap) if n_done[k % 1024] > k // 1024)
+        if steps != filled:
+            raise AssertionError(f"REINFORCE took {steps} Adam steps for "
+                                 f"{filled} filled episode slots")
+    launches += r["launches"]
+    return launches
+
+
 # The learning checks, one recipe each: the env, the algo, its config's and
-# the loop config's fields, the episodes read at each end, and the threshold
-# the mean of the last ones must clear. scripts/learning_seeds.py runs these
-# same recipes over seeds; each threshold is set from that spread.
+# the loop config's fields (the off-policy loop unless ``driver`` says
+# "onpolicy"), the episodes read at each end, and the threshold the mean of
+# the last ones must clear. scripts/learning_seeds.py runs these same
+# recipes over seeds; each threshold is set from that spread.
 LEARNING_CHECKS = {
     # the port on the CPU, seeds 0-19, read 40.1-431.9 as the mean of the
     # last 30 of 250 episodes, three seeds under 60; a uniform-random policy
@@ -1050,29 +1384,73 @@ LEARNING_CHECKS = {
         loop=dict(num_envs=8, max_episodes=120, start_steps=1000,
                   random_steps=1000, updates_per_burst=4, chunk_size=100),
         read=(20, 20), threshold=-500.0),
+    # the JAX package's recipe (tests/test_onpolicy.py:107-113), which
+    # expects more than 100; the port on the CPU, seeds 0-19, read
+    # 451.7-500.0 as the mean of the last 30 of 300 episodes, from 14-21
+    # over the first 10
+    "ppo_cartpole": dict(
+        env="CartPole-v1", algo="PPO", driver="onpolicy",
+        algo_cfg=dict(horizon=1024, minibatch_size=64, num_envs=8,
+                      adv_norm=True),
+        loop=dict(num_envs=8, max_episodes=300, horizon=1024),
+        read=(10, 30), threshold=300.0),
 }
 
 
-def phase_learning(name: str):
-    """The learning check ``LEARNING_CHECKS[name]`` on the card, seed 0."""
-    from freerl_tpu_torch.train import OffPolicyConfig
+def recipe_run(rec: dict, seed: int, device: str, algo_cls=None):
+    """The env, the algo and a call that trains it as recipe ``rec`` says,
+    with the loop's seed ``seed``; ``algo_cls`` replaces the recipe's algo
+    class (a probe of it)."""
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import (OffPolicyConfig, OnPolicyConfig,
+                                        train_offpolicy, train_onpolicy)
+
+    cls, cfg_cls = algo_classes(rec["algo"])
+    env = make(rec["env"], device=device)
+    algo = (algo_cls or cls)(env.dim_info, cfg_cls(**rec["algo_cfg"]),
+                             device=device)
+    if rec.get("driver") == "onpolicy":
+        cfg = OnPolicyConfig(seed=seed, **rec["loop"])
+        return env, algo, lambda: train_onpolicy(env, algo, cfg)
+    cfg = OffPolicyConfig(seed=seed, **rec["loop"])
+    return env, algo, lambda: train_offpolicy(env, algo, cfg)
+
+
+def phase_learning(name: str) -> int:
+    """The learning check ``LEARNING_CHECKS[name]`` on the card, seed 0,
+    with the checks of its driver's phases. Returns the sum-tree
+    launches."""
+    from freerl_tpu_torch.train import OnPolicyConfig
 
     rec = LEARNING_CHECKS[name]
-    algo_cls, cfg_cls = algo_classes(rec["algo"])
-    r = drive(rec["env"], cfg_cls(**rec["algo_cfg"]),
-              OffPolicyConfig(seed=0, **rec["loop"]), algo_cls=algo_cls)
+    onpolicy = rec.get("driver") == "onpolicy"
+    cls = algo_classes(rec["algo"])[0]
+    env, algo, run = recipe_run(
+        rec, 0, "cuda", onpolicy_probe(cls) if onpolicy else probe(cls))
+    label = f"learning {name}"
+    r = run_probed(run, env, algo, label)
     returns, info = r["returns"], r["info"]
+    if onpolicy:
+        check_onpolicy(r, OnPolicyConfig(**rec["loop"]), -np.inf, np.inf,
+                       label)
+    elif (len(algo.metrics) != info["updates"]
+          or len(returns) != min(info["episodes"],
+                                 rec["loop"]["max_episodes"])):
+        raise AssertionError(f"{label}: {len(algo.metrics)} metrics, "
+                             f"{len(returns)} returns for {info}")
     (n_first, n_last), threshold = rec["read"], rec["threshold"]
     first = float(returns[:n_first].mean())
     last = float(returns[-n_last:].mean())
+    steps = info.get("updates", info.get("iterations"))
     log(f"[learning {rec['env']} {rec['algo']}] {len(returns)} episodes, "
-        f"{info['env_steps']} env steps, {info['updates']} learner steps in "
-        f"{info['elapsed_s']:.1f} s (learner step {r['learn_ms']:.3f} ms): "
+        f"{info['env_steps']} env steps, {steps} learner steps or updates "
+        f"in {info['elapsed_s']:.1f} s (each {r['learn_ms']:.3f} ms): "
         f"first {n_first} episodes {first:.1f}, last {n_last} {last:.1f} "
         f"(threshold {threshold})")
     if len(returns) != rec["loop"]["max_episodes"] or not last > threshold:
         raise AssertionError(f"{rec['algo']} did not learn {rec['env']}: "
                              f"last {n_last} mean {last}")
+    return r["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1088,22 +1466,35 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
 
-    phase_build()
-    kernel = phase_sumtree()
-    phase_card_vs_cpu()
-    phase_card_vs_cpu_family()
-    kernel["launches"] = phase_main_path("PER tree", per=True)
-    phase_main_path("uniform", per=False)
-    kernel["launches_rainbow"] = phase_main_path("Rainbow", **RAINBOW)
-    phase_family()
-    phase_card_vs_cpu_continuous()
-    continuous = {name: phase_continuous(name) for name in ("DDPG", "TD3",
-                                                              "SAC")}
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        log(f"[time] {name}: {time.time() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    kernel = timed("sumtree", phase_sumtree)
+    timed("card-vs-cpu", phase_card_vs_cpu)
+    timed("card-vs-cpu family", phase_card_vs_cpu_family)
+    kernel["launches"] = timed("main PER tree", phase_main_path, "PER tree",
+                               per=True)
+    timed("main uniform", phase_main_path, "uniform", per=False)
+    kernel["launches_rainbow"] = timed("main Rainbow", phase_main_path,
+                                       "Rainbow", **RAINBOW)
+    timed("family", phase_family)
+    timed("card-vs-cpu continuous", phase_card_vs_cpu_continuous)
+    continuous = {name: timed(f"continuous {name}", phase_continuous, name)
+                  for name in ("DDPG", "TD3", "SAC")}
     kernel["launches_continuous"] = (
         sum(c["launches"] for c in continuous.values())
-        + phase_discrete_actor_critic() + phase_her())
+        + timed("discrete actor-critic", phase_discrete_actor_critic)
+        + timed("her", phase_her))
+    timed("card-vs-cpu onpolicy", phase_card_vs_cpu_onpolicy)
+    kernel["launches_onpolicy"] = timed("onpolicy", phase_onpolicy)
     for name in LEARNING_CHECKS:
-        phase_learning(name)
+        launches = timed(f"learning {name}", phase_learning, name)
+        if LEARNING_CHECKS[name].get("driver") == "onpolicy":
+            kernel["launches_onpolicy"] += launches
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [kernel]}))

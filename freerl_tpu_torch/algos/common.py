@@ -1,6 +1,7 @@
 """Shared algorithmic building blocks (counterpart:
-``freerl_tpu/algos/common.py``). The rest of that module (GAE, surrogate
-losses) comes with the slices that use it."""
+``freerl_tpu/algos/common.py``). The rest of that module (the surrogate
+and value-clip losses of the multi-agent family) comes with the slices
+that use it."""
 from __future__ import annotations
 
 from typing import Iterable, Sequence
@@ -24,6 +25,29 @@ def td_target(reward: torch.Tensor, gamma, next_value: torch.Tensor,
               done: torch.Tensor) -> torch.Tensor:
     """r + gamma * V' * (1 - done); gamma may be per-sample (n-step)."""
     return reward + gamma * next_value * (1.0 - done.to(torch.float32))
+
+
+def gae(rewards: torch.Tensor, values: torch.Tensor,
+        next_values: torch.Tensor, dones: torch.Tensor,
+        episode_dones: torch.Tensor, gamma: float, lam: float):
+    """Generalized advantage estimation over a (T, ...) time-major rollout.
+    Returns ``(advantages, advantages + values)``.
+
+    ``dones`` masks bootstrapping (terminated only); ``episode_dones`` cuts
+    the advantage recursion at episode ends (terminated OR truncated). The
+    recursion is a reverse Python loop over T on device tensors: no host
+    sync.
+    """
+    deltas = rewards + gamma * next_values * (
+        1.0 - dones.to(torch.float32)) - values
+    cut = 1.0 - episode_dones.to(torch.float32)
+    adv = torch.zeros_like(deltas[0])
+    advs = []
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        adv = deltas[t] + gamma * lam * cut[t] * adv
+        advs.append(adv)
+    advs = torch.stack(advs[::-1])
+    return advs, advs + values
 
 
 def clip_grads_by_norm(grads: list[torch.Tensor],

@@ -1,10 +1,14 @@
 """Carry parameters over from the JAX package's flax params.
 
-``net_params_from_flax`` serves the actor and critic nets of DDPG, TD3 and
-SAC: ``TanhActor``, ``SoftmaxActor``, ``QCritic``, ``GaussianActor`` and
-``SoftmaxPolicy`` are ``Dense_k/Dense_0/{kernel, bias}`` (the hidden layers,
-then the head; ``GaussianActor`` also has ``log_std``), and ``TwinQCritic``
-and ``TwinQTable`` are ``q1_0 ... q1_out`` and ``q2_0 ... q2_out``, each
+``net_params_from_flax`` serves the actor and critic nets of DDPG, TD3,
+SAC, PPO and REINFORCE: ``TanhActor``, ``SoftmaxActor``, ``QCritic``,
+``GaussianActor``, ``SoftmaxPolicy``, ``GaussianPolicy``,
+``CategoricalPolicy`` and ``VCritic`` are ``Dense_k/Dense_0/{kernel, bias}``
+(the hidden layers, then the head; ``GaussianActor`` and
+``GaussianPolicy`` also have ``log_std``); PPO's ``BetaPolicy``
+(``beta=True``) has two heads after the hidden layers, ``Dense_k`` for
+alpha and ``Dense_{k+1}`` for beta; ``TwinQCritic`` and ``TwinQTable`` are
+``q1_0 ... q1_out`` and ``q2_0 ... q2_out``, each
 ``/Dense_0/{kernel, bias}``.
 
 flax numbers the modules of a ``QNetwork`` by kind, in creation order:
@@ -65,10 +69,12 @@ def dqn_params_from_flax(params: dict,
     return state
 
 
-def _mlp_params(layers: list, prefix: str = "") -> dict[str, torch.Tensor]:
+def _mlp_params(layers: list, prefix: str = "",
+                heads: tuple = ("head",)) -> dict[str, torch.Tensor]:
     """The flax ``Dense`` layers of one MLP, in order, as ``hidden.i`` and
-    ``head`` entries of a torch ``MLP``'s state_dict."""
-    names = [f"hidden.{i}" for i in range(len(layers) - 1)] + ["head"]
+    head entries (``heads``, in creation order) of a torch state_dict."""
+    n_hidden = len(layers) - len(heads)
+    names = [f"hidden.{i}" for i in range(n_hidden)] + list(heads)
     state = {}
     for name, layer in zip(names, layers):
         layer = layer["Dense_0"]
@@ -77,10 +83,13 @@ def _mlp_params(layers: list, prefix: str = "") -> dict[str, torch.Tensor]:
     return state
 
 
-def net_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """Turn the flax param tree of a DDPG / TD3 / SAC actor or critic
-    (nested dicts of numpy arrays) into a ``state_dict`` for the port's
-    net of the same kind."""
+def net_params_from_flax(params: dict,
+                         beta: bool = False) -> dict[str, torch.Tensor]:
+    """Turn the flax param tree of a DDPG / TD3 / SAC / PPO / REINFORCE
+    actor or critic (nested dicts of numpy arrays) into a ``state_dict``
+    for the port's net of the same kind; ``beta`` for PPO's two-headed
+    ``BetaPolicy``, whose tree alone does not tell its heads from a hidden
+    layer."""
     twin = {k for k in params if k.startswith(("q1_", "q2_"))}
     if twin:
         if twin != set(params):
@@ -94,9 +103,10 @@ def net_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
         return state
     dense = _by_suffix(k for k in params if k.startswith("Dense_"))
     extra = set(params) - set(dense)
-    if not dense or extra - {"log_std"}:
+    heads = ("alpha_head", "beta_head") if beta else ("head",)
+    if len(dense) < len(heads) or extra - {"log_std"} or beta and extra:
         raise ValueError(f"not an actor or critic tree: {sorted(params)}")
-    state = _mlp_params([params[k] for k in dense])
+    state = _mlp_params([params[k] for k in dense], heads=heads)
     if extra:
         state["log_std"] = _t(params["log_std"])
     return state

@@ -18,6 +18,7 @@ from freerl_tpu_torch.envs.base import (
     vec_reset,
     vec_step_auto_reset,
 )
+from freerl_tpu_torch.envs.bipedal import BipedalWalker
 from freerl_tpu_torch.envs.classic import (
     CartPole,
     MountainCar,
@@ -29,6 +30,7 @@ from freerl_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderContinuou
 from freerl_tpu_torch.envs.tabular import FrozenLake, Taxi
 
 _REGISTRY = {
+    "BipedalWalker-v3": BipedalWalker,
     "LunarLander-v2": LunarLander,
     "LunarLanderContinuous-v2": LunarLanderContinuous,
     "CartPole-v1": CartPole,
@@ -43,7 +45,6 @@ _REGISTRY = {
 # envs of the JAX package not ported yet, with the ROADMAP queue A item
 # that ports them
 _PENDING = {
-    "BipedalWalker-v3": "queue A, slice 4 (envs/bipedal.py)",
     "simple_spread_v3": "queue A, slice 5 (envs/mpe.py)",
     "simple_adversary_v3": "queue A, slice 5 (envs/mpe.py)",
     "simple_tag_v3": "queue A, slice 5 (envs/mpe.py)",
@@ -72,6 +73,7 @@ def make(name: str, dis_to_con: bool = False, n_bins: int = 16,
 
 
 __all__ = [
+    "BipedalWalker",
     "CartPole",
     "DisToConWrapper",
     "Env",

@@ -7,12 +7,16 @@ explicit ``torch.Generator``:
 - ``'torch'`` and ``'fanin'``: weight and bias both U(+-1/sqrt(fan_in))
   (the torch default, and DDPG's fan-in init for the other layers);
 - ``'final'``: weight and bias both U(+-final_scale), 3e-3 by default
-  (DDPG's final layers).
+  (DDPG's final layers);
+- ``'orthogonal'``: an orthogonal weight scaled by ``gain`` (sqrt(2) by
+  default), zero bias (PPO's orthogonal-init trick).
 
-The orthogonal scheme comes with the on-policy slice that uses it. Layers
-are created, and so initialised, in the JAX modules' order. Weights are
-stored torch-style, ``(out, in)``; flax stores ``(in, out)`` (see
-``freerl_tpu_torch/convert.py``).
+Layers are created, and so initialised, in the JAX modules' order. Weights
+are stored torch-style, ``(out, in)``; flax stores ``(in, out)`` (see
+``freerl_tpu_torch/convert.py``). An orthogonal flax kernel of shape
+``(in, out)`` and torch's ``(out, in)`` weight both satisfy
+``W^T W = gain^2 I`` (``W W^T`` when ``out < in``) on the weight torch
+holds; the two RNGs never draw the same matrix.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ _ACTS = {
     "gelu": F.gelu,
 }
 
-SCHEMES = ("torch", "fanin", "final")
+SCHEMES = ("torch", "fanin", "final", "orthogonal")
 
 
 class Dense(nn.Module):
@@ -38,20 +42,21 @@ class Dense(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  generator: torch.Generator | None = None, device="cuda",
-                 scheme: str = "torch", final_scale: float = 3e-3):
+                 scheme: str = "torch", final_scale: float = 3e-3,
+                 gain: float = math.sqrt(2.0)):
         super().__init__()
-        if scheme == "orthogonal":
-            raise NotImplementedError(
-                "the orthogonal init comes with the on-policy slice "
-                "(ROADMAP.md queue A, slice 4)")
         if scheme not in SCHEMES:
             raise ValueError(f"unknown init scheme {scheme!r}")
-        bound = (final_scale if scheme == "final"
-                 else 1.0 / math.sqrt(in_features))
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         with torch.no_grad():
+            if scheme == "orthogonal":
+                nn.init.orthogonal_(self.weight, gain, generator=generator)
+                nn.init.zeros_(self.bias)
+                return
+            bound = (final_scale if scheme == "final"
+                     else 1.0 / math.sqrt(in_features))
             nn.init.uniform_(self.weight, -bound, bound, generator=generator)
             nn.init.uniform_(self.bias, -bound, bound, generator=generator)
 
@@ -83,15 +88,16 @@ class Trunk(nn.Module):
 class MLP(Trunk):
     """Trunk + linear head. hidden=(128,) matches the reference default;
     ``scheme`` inits the hidden layers, ``out_scheme`` (default: the same)
-    the head."""
+    the head, with the orthogonal gain ``out_gain``."""
 
     def __init__(self, in_dim: int, out_dim: int, hidden: Sequence[int] = (128,),
                  activation: str = "relu",
                  generator: torch.Generator | None = None, device="cuda",
-                 scheme: str = "torch", out_scheme: str | None = None):
+                 scheme: str = "torch", out_scheme: str | None = None,
+                 out_gain: float = 1.0):
         super().__init__(in_dim, hidden, activation, generator, device, scheme)
         self.head = Dense(self.trunk_dim, out_dim, generator, device,
-                          out_scheme or scheme)
+                          out_scheme or scheme, gain=out_gain)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(x))

@@ -84,11 +84,13 @@ def example_transition(env: Env, algo=None) -> Transition:
     )
 
 
-def record_episodes(env: Env, c: LoopCarry, reward: torch.Tensor,
+def record_episodes(env: Env, c, reward: torch.Tensor,
                     dones: torch.Tensor, record_cap: int) -> None:
-    """Episode accounting: write finished returns chronologically. Slots
-    past the record, and rows still running, land in the drop slot
-    ``record_cap`` (the masked form of JAX's ``mode="drop"`` scatter)."""
+    """Episode accounting on a carry ``c`` with ``ep_return``,
+    ``ep_counter`` and ``episode_returns`` (this loop's and the on-policy
+    driver's): write finished returns chronologically. Slots past the
+    record, and rows still running, land in the drop slot ``record_cap``
+    (the masked form of JAX's ``mode="drop"`` scatter)."""
     ret = c.ep_return + record_scalarize(env, reward)
     offs = torch.cumsum(dones.to(torch.int64), 0) - 1
     slot = torch.where(dones, c.ep_counter + offs, record_cap)

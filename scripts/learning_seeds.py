@@ -1,15 +1,19 @@
 """The spread over seeds of ``chip_smoke.py``'s learning checks.
 
-    python3 scripts/learning_seeds.py [--recipe cartpole|sac_pendulum]
-                                      [--device cpu] [--seeds 0-19]
+    python3 scripts/learning_seeds.py
+        [--recipe cartpole|sac_pendulum|ppo_cartpole] [--device cpu]
+        [--seeds 0-19]
 
 Runs one recipe of ``chip_smoke.LEARNING_CHECKS``, the very one the check
 runs: ``cartpole`` (the default; DQN, replay 20,000, batch 64, 8 envs, 4
 updates per vector step, 250 episodes, read over the first 10 and the last
-30) or ``sac_pendulum`` (the JAX package's recipe of
+30), ``sac_pendulum`` (the JAX package's recipe of
 ``tests/test_continuous.py``: SAC, replay 50,000, 8 envs, start and random
 steps 1000, 4 updates per vector step, 120 episodes, read over the first
-and the last 20). One JSON line per seed, then one with the smallest and
+and the last 20) or ``ppo_cartpole`` (the JAX package's recipe of
+``tests/test_onpolicy.py``: PPO with adv_norm, horizon 1024, minibatch 64,
+8 envs, 300 episodes through ``train_onpolicy``, read over the first 10
+and the last 30). One JSON line per seed, then one with the smallest and
 largest "last" mean. A check's threshold is set below that spread.
 """
 from __future__ import annotations
@@ -23,9 +27,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import LEARNING_CHECKS, algo_classes  # noqa: E402
-from freerl_tpu_torch.envs import make  # noqa: E402
-from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy  # noqa: E402
+from chip_smoke import LEARNING_CHECKS, recipe_run  # noqa: E402
 
 
 def main() -> int:
@@ -39,15 +41,11 @@ def main() -> int:
     if args.device == "cpu":
         torch.set_num_threads(1)
     rec = LEARNING_CHECKS[args.recipe]
-    algo_cls, cfg_cls = algo_classes(rec["algo"])
     n_first, n_last = rec["read"]
     means = []
     for seed in range(first, last + 1):
-        env = make(rec["env"], device=args.device)
-        algo = algo_cls(env.dim_info, cfg_cls(**rec["algo_cfg"]),
-                        device=args.device)
-        cfg = OffPolicyConfig(seed=seed, **rec["loop"])
-        _, returns, info = train_offpolicy(env, algo, cfg)
+        _, _, run = recipe_run(rec, seed, args.device)
+        _, returns, info = run()
         means.append(float(returns[-n_last:].mean()))
         print(json.dumps({"seed": seed,
                           f"first{n_first}": float(returns[:n_first].mean()),

@@ -1,14 +1,23 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-    python3 scripts/torch_profile.py [--config per|uniform|rainbow|ddpg|td3|sac]
-                                     [--num-envs 1024] [--steps 32]
+    python3 scripts/torch_profile.py
+        [--config per|uniform|rainbow|ddpg|td3|sac|ppo_bipedal|ppo_cartpole|reinforce]
+        [--num-envs 1024] [--steps 32]
 
 Builds the actor-learner loop of ``train_offpolicy`` at full width (buffer
 1e6, batch 256): DQN on LunarLander-v2 (8-128-4 net) with PER on the
 sum-tree sampler (``per``, the default), uniform replay (``uniform``) or
 all six tricks (``rainbow``: double, dueling, PER tree, noisy, 3-step,
 C51); or DDPG, TD3 or SAC on LunarLanderContinuous-v2 (the configs'
-defaults, 2x128 nets). It warms the loop up for one chunk, then:
+defaults, 2x128 nets). Or the on-policy loop of ``train_onpolicy``: PPO
+with its defaults (2x128 nets, 10 epochs of minibatch 64) on
+BipedalWalker-v3 (``ppo_bipedal``) or CartPole-v1 (``ppo_cartpole``), T
+16, or REINFORCE on CartPole-v1 (``reinforce``), T 64; ``--steps`` is
+then ignored, and an iteration (rollout of T vector steps, then one
+update) is broken into the rollout's phases (sample, env step, process:
+reward and obs hooks, episode record, rollout write) and the update,
+with the kernels per vector step and per Adam step. The off-policy loop
+is warmed up for one chunk, then:
 
 1. times ``--steps`` vector steps as the loop runs them (no sync inside);
 2. times each phase of a vector step (explore, env step, replay add,
@@ -35,6 +44,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import adam_steps  # noqa: E402
 from freerl_tpu_torch import algos  # noqa: E402
 from freerl_tpu_torch.train import loop  # noqa: E402
 from freerl_tpu_torch.envs import make  # noqa: E402
@@ -50,11 +60,142 @@ CONFIGS = {
     "td3": ("LunarLanderContinuous-v2", "TD3", dict(batch_size=256)),
     "sac": ("LunarLanderContinuous-v2", "SAC", dict(batch_size=256)),
 }
+# on-policy config: (env, algo, config keywords, T)
+ONPOLICY = {
+    "ppo_bipedal": ("BipedalWalker-v3", "PPO", dict(), 16),
+    "ppo_cartpole": ("CartPole-v1", "PPO", dict(), 16),
+    "reinforce": ("CartPole-v1", "REINFORCE", dict(), 64),
+}
+
+
+def device_kernels(prof) -> list:
+    """The profiler's device events, without the spans of user annotations
+    such as "Optimizer.step#Adam.step", which cover kernels counted on
+    their own."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
+
+
+def profile_onpolicy(label: str, n: int, card: str) -> dict:
+    """One on-policy iteration at full width, broken down by phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from freerl_tpu_torch.train import onpolicy
+
+    env_name, algo_name, kwargs, T = ONPOLICY[label]
+    env = make(env_name, device="cuda")
+    cfg_cls = getattr(algos, algo_name + "Config")
+    if algo_name == "PPO":
+        kwargs = dict(kwargs, horizon=n * T, num_envs=n)
+    algo = getattr(algos, algo_name)(env.dim_info, cfg_cls(**kwargs),
+                                     device="cuda")
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    record_cap = 10**6
+    c = onpolicy.start(env, algo, n, generator, record_cap)
+
+    def rollout():
+        for t in range(T):
+            onpolicy.vector_step(env, algo, c, generator, record_cap, t, T)
+
+    rollout()                                   # warm-up iteration
+    onpolicy.learn(algo, c, generator)
+    torch.cuda.synchronize()
+
+    # 1. the rollout and the update as the loop runs them
+    t0 = time.perf_counter()
+    rollout()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / T
+    before = adam_steps(c.algo_state.opt)
+    t0 = time.perf_counter()
+    onpolicy.learn(algo, c, generator)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    n_adam = adam_steps(c.algo_state.opt) - before
+
+    # 2. synchronized phase times of the rollout's vector steps
+    phases = {k: 0.0 for k in ("sample", "env_step", "process")}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        phases[name] += time.perf_counter() - t0
+        return out
+
+    for t in range(T):
+        env_a, stored, logp = timed("sample", lambda: algo.sample_action(
+            c.algo_state, c.obs, algo.draw_action(n, generator)))
+        out = timed("env_step", lambda: loop.vec_step_auto_reset(
+            env, c.env_state, env_a, generator, n))
+
+        def process():
+            c.algo_state, reward = algo.process_reward(
+                c.algo_state, out.reward, out.episode_done)
+            c.algo_state, next_obs, carry_obs = algo.process_obs(
+                c.algo_state, out.next_obs, out.carry_obs)
+            loop.record_episodes(env, c, out.reward, out.episode_done,
+                                 record_cap)
+            c.rollout = onpolicy._write(c.rollout, t, T, dict(
+                obs=c.obs, action=stored, log_pi=logp, reward=reward,
+                next_obs=next_obs, done=out.terminated,
+                adv_done=out.episode_done))
+            c.env_state, c.obs = out.state, carry_obs
+        timed("process", process)
+    phase_ms = {k: v * 1e3 / T for k, v in phases.items()}
+
+    # 3. profiler over one rollout, then over one update
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    rollout_table = prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=20)
+    before = adam_steps(c.algo_state.opt)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_u:
+        t0 = time.perf_counter()
+        onpolicy.learn(algo, c, generator)
+        torch.cuda.synchronize()
+        update_wall_ms = (time.perf_counter() - t0) * 1e3
+    n_adam_prof = adam_steps(c.algo_state.opt) - before
+    kernels_u = device_kernels(prof_u)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(f"chiprun_out/torch_profile_{label}.txt", "w") as fh:
+        fh.write(f"{card}\nrollout of {T} vector steps\n{rollout_table}\n"
+                 "update\n" + prof_u.key_averages().table(
+                     sort_by="cuda_time_total", row_limit=20) + "\n")
+    device_us = sum(e.device_time for e in kernels)
+    device_us_u = sum(e.device_time for e in kernels_u)
+    return {
+        "config": label, "num_envs": n, "T": T, "card": card,
+        "vector_step_ms": step_ms,
+        "update_ms": update_ms,
+        "adam_steps_per_update": n_adam,
+        "iteration_ms": step_ms * T + update_ms,
+        "env_steps_per_s": n * T / ((step_ms * T + update_ms) / 1e3),
+        "vector_step_ms_synced": sum(phase_ms.values()),
+        "phase_ms_synced": phase_ms,
+        "vector_step_ms_profiled": wall_ms / T,
+        "device_busy_share_rollout": device_us / 1e3 / wall_ms,
+        "kernels_per_vector_step": len(kernels) / T,
+        "update_ms_profiled": update_wall_ms,
+        "device_busy_share_update": device_us_u / 1e3 / update_wall_ms,
+        "kernels_per_adam_step": len(kernels_u) / max(n_adam_prof, 1),
+        "kernels_per_update": len(kernels_u),
+    }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="per")
+    ap.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY),
+                    default="per")
     ap.add_argument("--num-envs", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args()
@@ -66,6 +207,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     label = args.config
+    if label in ONPOLICY:
+        print(json.dumps(profile_onpolicy(label, args.num_envs, card)))
+        return 0
 
     env_name, algo_name, kwargs = CONFIGS[label]
     env = make(env_name, device="cuda")
@@ -143,12 +287,7 @@ def main() -> int:
             loop.vector_step(env, algo, cfg, carry, generator, record_cap)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events, without the spans of user annotations such as
-    # "Optimizer.step#Adam.step", which cover kernels counted on their own
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("Optimizer.")]
+    kernels = device_kernels(prof)
     device_us = sum(e.device_time for e in kernels)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -224,8 +224,8 @@ def test_dense_init_schemes(scheme):
         np.testing.assert_allclose(x.std(), bound / np.sqrt(3), rtol=0.05)
         np.testing.assert_allclose(np.abs(np.asarray(jx)).max(), bound,
                                    rtol=0.01)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        Dense(4, 4, device="cpu", scheme="orthogonal")
+    with pytest.raises(ValueError, match="unknown init scheme"):
+        Dense(4, 4, device="cpu", scheme="xavier")
 
 
 def test_mlp_out_scheme_and_ddpg_nets():
