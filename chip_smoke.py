@@ -51,12 +51,27 @@ Phases (any failure raises, and the script exits non-zero):
     the episode record must equal the RAW rewards' sums, REINFORCE must
     take one Adam step per filled episode slot, and none of them launches
     the sum-tree kernel;
-13. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
-    on Pendulum-v1, PPO on CartPole-v1), seed 0: the mean return of the
-    last episodes must clear each recipe's threshold;
-14. print one JSON line describing each kernel (with its launches on the
-    main path, and on the Rainbow, continuous and on-policy paths), the
-    card line, and the result line.
+13. the multi-agent slice on the card against the CPU: 60 teacher-forced
+    auto-resetting steps of each MPE scenario (spread, adversary, tag,
+    world comm) and of the masked spread at 1024 envs, and one learner
+    step at full width (2x128, batch 256) of MADDPG, MATD3 (two steps, one
+    delayed), ATT-MADDPG, MADDPG with the Gaussian actor, MADDPG on world
+    comm, MASAC and MAAC (discrete spread);
+14. train_marl at the configs' defaults (2x128, batch 256, replay 1e6),
+    1024 envs: MADDPG on simple_spread_v3 for 256 vector steps; MATD3,
+    ATT-MADDPG and MASAC on simple_spread_v3, MAAC on the discrete spread
+    and MADDPG on simple_world_comm_v3 for 64 each; the (E, A) record
+    must equal each agent's sums of the raw rewards and lie in the
+    scenario's ranges, the learner must step once per vector step, and
+    none of them launches the sum-tree kernel; each path's kernels per
+    vector step are profiled;
+15. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+    on Pendulum-v1, PPO on CartPole-v1, MATD3 on simple_spread_v3), seed
+    0: the mean return of the last episodes must clear each recipe's
+    threshold;
+16. print one JSON line describing each kernel (with its launches on the
+    main path, and on the Rainbow, continuous, on-policy and multi-agent
+    paths), the card line, and the result line.
 
 It needs no network and builds everything from the checkout.
 """
@@ -795,9 +810,11 @@ LOSSES = ("loss", "critic_loss", "actor_loss", "alpha")
 
 
 def check_metrics(label: str, algo) -> list:
-    """Every reported loss of every learner step is finite; returns the
-    names checked."""
-    names = [k for k in LOSSES if algo.metrics and k in algo.metrics[0]]
+    """Every reported loss of every learner step (the multi-agent family's
+    per agent, ``critic_loss_0``, ...) is finite; returns the names
+    checked."""
+    names = [k for k in (algo.metrics[0] if algo.metrics else ())
+             if k.rstrip("_0123456789") in LOSSES]
     for k in names:
         if not bool(torch.isfinite(torch.stack(
                 [m[k] for m in algo.metrics])).all()):
@@ -1205,6 +1222,16 @@ def phase_card_vs_cpu_onpolicy():
         f"{flips}")
 
 
+def device_kernels(prof) -> list:
+    """The profiler's device events, without the spans of user annotations
+    such as "Optimizer.step#Adam.step", which cover kernels counted on
+    their own."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
+
+
 def adam_steps(opt: torch.optim.Optimizer) -> int:
     """The Adam steps an optimizer has taken (its first param's count; a
     host tensor, so reading it costs no device sync)."""
@@ -1249,14 +1276,16 @@ def onpolicy_probe(algo_cls):
 
 def expected_record(raw: list) -> np.ndarray:
     """The episode record the loop should write from the RAW rewards:
-    each env's float32 running sum, recorded where its episode ends, in
-    the order episodes end (env order within a step)."""
+    each env's float32 running sum (each agent's, for (N, A) rewards),
+    recorded where its episode ends, in the order episodes end (env order
+    within a step)."""
     run, out = None, []
     for reward, done in raw:
         reward, done = reward.cpu(), done.cpu()
         run = reward.clone() if run is None else run + reward
         out.append(run[done])
-        run = torch.where(done, 0.0, run)
+        run = torch.where(done.reshape(done.shape + (1,) * (run.dim() - 1)),
+                          0.0, run)
     return torch.cat(out).numpy()
 
 
@@ -1361,11 +1390,301 @@ def phase_onpolicy() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The multi-agent off-policy slice
+# ---------------------------------------------------------------------------
+MARL_NET_FIELDS = ("actors", "actor_targets", "critics", "critic_targets",
+                   "critic", "critic_target")
+
+
+def marl_nets(state) -> list:
+    """Every net of a multi-agent learner state, in a fixed order."""
+    nets = []
+    for field in MARL_NET_FIELDS:
+        v = getattr(state, field, None)
+        nets += v if isinstance(v, list) else [] if v is None else [v]
+    return nets
+
+
+def marl_env(name: str, dev: str):
+    """An MPE scenario through ``make``, MAAC's discrete spread, or the
+    masked spread."""
+    from freerl_tpu_torch.envs import MaskedSpread, make
+
+    if name == "MaskedSpread":
+        return MaskedSpread(device=dev)
+    if name == "simple_spread_v3 discrete":
+        return make("simple_spread_v3", device=dev, continuous_actions=False)
+    return make(name, device=dev)
+
+
+def marl_rows(env, n: int, rng) -> dict:
+    """Random replay rows in ``env``'s layout."""
+    a, di = env.n_agents, env.dim_info
+    action = (rng.uniform(-1, 1, (n, a, di.action_dim)).astype(np.float32)
+              if di.is_continue else
+              rng.randint(0, di.action_dim, (n, a)).astype(np.int32))
+    return dict(obs=rng.randn(n, a, di.obs_dim).astype(np.float32),
+                action=action,
+                reward=(rng.randn(n, a) * 3).astype(np.float32),
+                next_obs=rng.randn(n, a, di.obs_dim).astype(np.float32),
+                done=rng.rand(n) < 0.1, episode_done=rng.rand(n) < 0.1)
+
+
+# label: (env, algo, config fields, learner steps); MATD3 is MADDPG with
+# twin=True, what the MATD3 factory builds
+MARL_VARIANTS = {
+    "MADDPG": ("simple_spread_v3", "MADDPG", dict(), 1),
+    "MATD3": ("simple_spread_v3", "MADDPG", dict(twin=True), 2),
+    "ATT-MADDPG": ("simple_spread_v3", "MADDPG", dict(att_critic=True), 1),
+    "MADDPG learn_way 1": ("simple_spread_v3", "MADDPG",
+                           dict(actor_learn_way="1"), 1),
+    "MADDPG world comm": ("simple_world_comm_v3", "MADDPG", dict(), 1),
+    "MASAC": ("simple_spread_v3", "MASAC", dict(), 1),
+    "MAAC": ("simple_spread_v3 discrete", "MAAC", dict(), 1),
+}
+MARL_SCENARIOS = ("simple_spread_v3", "simple_adversary_v3", "simple_tag_v3",
+                  "simple_world_comm_v3", "MaskedSpread")
+
+
+def phase_card_vs_cpu_marl():
+    """The multi-agent slice on the card against the CPU: 60 teacher-forced
+    auto-resetting steps of each MPE scenario and of the masked spread at
+    1024 envs (two 25-step truncations); one learner step of each variant
+    at full width (2x128, batch 256; MATD3 two, one of them delayed) from
+    identical params, replay and draws. The tests' tolerances: steps within
+    1e-5, flags equal; learner states within 1e-5 bar one element in
+    10,000 (an Adam step on a gradient that is float noise), none past the
+    lr; losses within 1e-6 relative."""
+    from freerl_tpu_torch.core.types import Transition
+    from freerl_tpu_torch.envs import step_auto_reset, vec_reset
+    from freerl_tpu_torch.train.marl import example_transition
+
+    devs = ("cpu", "cuda")
+    rng = np.random.RandomState(5)
+    b, steps = 1024, 60
+    step_errs = {}
+    for name in MARL_SCENARIOS:
+        env = {dev: marl_env(name, dev) for dev in devs}
+        gen = torch.Generator().manual_seed(0)
+        state, _ = vec_reset(env["cpu"], gen, b)
+        a, di = env["cpu"].n_agents, env["cpu"].dim_info
+        worst, past = 0.0, 0
+        for step in range(steps):
+            if di.is_continue:      # past both ends of the box
+                action = torch.rand(b, a, di.action_dim, generator=gen) \
+                    * 1.4 - 0.2
+            else:
+                action = torch.randint(0, di.action_dim, (b, a),
+                                       generator=gen)
+            reset_draw = env["cpu"].draw_reset(b, gen)
+            cpu = step_auto_reset(env["cpu"], state, action, None, reset_draw)
+            card = step_auto_reset(env["cuda"], to_device(state, "cuda"),
+                                   action.cuda(), None, reset_draw.cuda())
+            for flag in ("terminated", "truncated"):
+                if not torch.equal(getattr(cpu, flag),
+                                   getattr(card, flag).cpu()):
+                    raise AssertionError(f"{name} step {step}: {flag} "
+                                         f"card vs CPU")
+            x, y = (torch.cat(
+                [getattr(out, f).reshape(b, -1).cpu()
+                 for f in ("next_obs", "carry_obs", "reward")]
+                + [getattr(out.state, f.name).reshape(b, -1).float().cpu()
+                   for f in dataclasses.fields(out.state)], 1)
+                for out in (cpu, card))
+            err = (x - y).abs().max(1).values
+            worst = max(worst, float(err.max()))
+            past += int((err > 1e-5).sum())
+            state = cpu.state
+        step_errs[name] = (worst, past)
+        if past:
+            raise AssertionError(f"{name}: {past} of {b * steps} row-steps "
+                                 f"past 1e-5 card vs CPU (worst {worst})")
+
+    learn_errs = {}
+    for label, (env_name, algo_name, extra, n_steps) in MARL_VARIANTS.items():
+        cls, cfg_cls = algo_classes(algo_name)
+        cfg = cfg_cls(batch_size=256, buffer_size=8192, **extra)
+        env = {dev: marl_env(env_name, dev) for dev in devs}
+        algo = {dev: cls(env[dev], cfg, device=dev) for dev in devs}
+        init = algo["cpu"].init(torch.Generator().manual_seed(0))
+        rows = marl_rows(env["cpu"], 8192, rng)
+        bufs = {dev: algo[dev].make_buffer(
+            example_transition(env[dev]), num_envs=8192).add(Transition(
+                **{k: torch.as_tensor(v).to(dev) for k, v in rows.items()}))
+            for dev in devs}
+        gen = torch.Generator().manual_seed(1)
+        draws = [algo["cpu"].draw_update(bufs["cpu"], gen)
+                 for _ in range(n_steps)]
+        out = {}
+        for dev in devs:
+            st = algo[dev].init(torch.Generator(device=dev).manual_seed(0))
+            for net, ref in zip(marl_nets(st), marl_nets(init)):
+                net.load_state_dict(ref.state_dict())
+            with torch.no_grad():
+                for la, ref in zip(getattr(st, "log_alphas", []),
+                                   getattr(init, "log_alphas", [])):
+                    la.copy_(ref)
+            losses = []
+            for d in draws:
+                st, m = algo[dev].update(st, bufs[dev], to_device(d, dev))
+                losses += [m[k].reshape(1) for k in sorted(m)]
+            vals = [p.detach().flatten() for net in marl_nets(st)
+                    for p in net.parameters()]
+            vals += [la.detach().reshape(1)
+                     for la in getattr(st, "log_alphas", [])]
+            out[dev] = (torch.cat(vals).cpu().double(),
+                        torch.cat(losses).cpu().double())
+        err = (out["cpu"][0] - out["cuda"][0]).abs()
+        loss_err = float(((out["cpu"][1] - out["cuda"][1]).abs()
+                          / out["cpu"][1].abs().clamp(min=1.0)).max())
+        past = int((err > 1e-5).sum())
+        lr = max(cfg.actor_lr, cfg.critic_lr)
+        learn_errs[label] = (float(err.max()), past, loss_err)
+        if (past > err.numel() // 10_000 or float(err.max()) > lr
+                or loss_err > 1e-6):
+            raise AssertionError(f"{label} learner step card vs CPU: max abs "
+                                 f"err {float(err.max())}, {past} of "
+                                 f"{err.numel()} past 1e-5, losses' max rel "
+                                 f"err {loss_err}")
+    log(f"[card-vs-cpu marl] {steps} teacher-forced steps x {b} envs: (max "
+        f"abs err, row-steps past 1e-5) {json.dumps(step_errs)}; learner "
+        f"steps at full width, batch 256: (max abs err, elements past 1e-5, "
+        f"losses' max rel err) {json.dumps(learn_errs)}")
+
+
+def log_steps(env) -> list:
+    """Keep each step's reward, episode-end flags and the action's range,
+    as tensors on the device (no sync), in the returned list."""
+    log, step = [], env.step
+
+    def logged(state, action, draw):
+        out = step(state, action, draw)
+        log.append((out[2].clone(), out[3] | out[4],
+                    action.amin().reshape(1), action.amax().reshape(1)))
+        return out
+
+    env.step = logged
+    return log
+
+
+def marl_kernels(env, algo, num_envs: int, steps: int = 4) -> float:
+    """Kernels per vector step of the multi-agent loop with the learner
+    bursting every step: ``torch.profiler`` over ``steps`` vector steps
+    of a fresh carry, after two of warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from freerl_tpu_torch.train import marl
+
+    cfg = marl.MARLConfig(num_envs=num_envs, start_steps=0)
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    c = marl.start(env, algo, num_envs, generator, 10 * num_envs)
+    for _ in range(2):
+        marl.vector_step(env, algo, cfg, c, generator, 10 * num_envs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            marl.vector_step(env, algo, cfg, c, generator, 10 * num_envs)
+        torch.cuda.synchronize()
+    return len(device_kernels(prof)) / steps
+
+
+# Each agent's return range over one 25-step episode, from the scenario's
+# rewards. spread (N 3): every reward is <= 0; an agent's force is at most
+# 5 sqrt(2) from its action plus 100 * 0.3007 from each overlapping other
+# agent, 67.2 in all, so its speed stays under 0.4 * 67.2 (damping 0.25,
+# dt 0.1) and its distance to a landmark under sqrt(2) + 25 * 2.69 +
+# 0.9 sqrt(2) = 70: a reward is at least 0.5 * (-3 * 70) + 0.5 * (-2).
+# world comm (4 adversaries, 2 good; speeds capped at 1.0 and 1.3, so any
+# two entities lie within 2 sqrt(2) * (1 + 25 * 0.13) = 12.1): an
+# adversary's reward lies in [-0.1 * 12.1, 5 * 8], a good agent's in
+# [-5 * 4 - 2 * 20, 2 * 2 + 0.05 * 12.1].
+SPREAD_RETURNS = (25 * (0.5 * -3 * 70 + 0.5 * -2), 0.0)
+WORLD_COMM_RETURNS = ([(25 * -1.21, 25 * 40.0)] * 4
+                      + [(25 * -60.0, 25 * 4.605)] * 2)
+
+# label: (env, algo, config fields, vector steps, per-agent return ranges)
+MARL_PATHS = {
+    "MADDPG spread": ("simple_spread_v3", "MADDPG", dict(), 256,
+                      [SPREAD_RETURNS] * 3),
+    "MATD3 spread": ("simple_spread_v3", "MADDPG", dict(twin=True), 64,
+                     [SPREAD_RETURNS] * 3),
+    "ATT-MADDPG spread": ("simple_spread_v3", "MADDPG",
+                          dict(att_critic=True), 64, [SPREAD_RETURNS] * 3),
+    "MASAC spread": ("simple_spread_v3", "MASAC", dict(), 64,
+                     [SPREAD_RETURNS] * 3),
+    "MAAC discrete spread": ("simple_spread_v3 discrete", "MAAC", dict(), 64,
+                             [SPREAD_RETURNS] * 3),
+    "MADDPG world comm": ("simple_world_comm_v3", "MADDPG", dict(), 64,
+                          WORLD_COMM_RETURNS),
+}
+
+
+def phase_marl(label: str) -> dict:
+    """``train_marl`` at full width (the configs' defaults: 2x128, batch
+    256, replay 1e6, gamma 0.95, tau 0.01), 1024 envs: the record must
+    equal each agent's sums of the raw rewards, lie in the scenario's
+    ranges, the learner must take one step per vector step (start_steps
+    500 < 1024), continuous actions must reach the env in [0, 1], and the
+    sum-tree kernel must not be launched. Then the kernels per vector
+    step, profiled on a fresh carry."""
+    from freerl_tpu_torch.train import MARLConfig, train_marl
+
+    env_name, algo_name, extra, steps, ranges = MARL_PATHS[label]
+    num_envs, chunk = 1024, 32
+    env = marl_env(env_name, "cuda")
+    log_ = log_steps(env)
+    cls, cfg_cls = algo_classes(algo_name)
+    algo = probe(cls)(env, cfg_cls(num_envs=num_envs, **extra),
+                      device="cuda")
+    cfg = MARLConfig(seed=0, num_envs=num_envs, start_steps=500,
+                     chunk_size=chunk, max_env_steps=num_envs * steps,
+                     max_episodes=10**9)
+    r = run_probed(lambda: train_marl(env, algo, cfg), env, algo, label)
+    info, returns = r["info"], r["returns"]
+    algo.buffer = None
+    want = expected_record([(x, d) for x, d, _, _ in log_])
+    want_updates = sum(1 for t in range(1, steps + 1)
+                       if t * num_envs > cfg.start_steps)
+    if (not np.array_equal(returns, want)
+            or returns.shape != (num_envs * (steps // 25), env.n_agents)):
+        raise AssertionError(f"{label}: the record {returns.shape} is not "
+                             f"each agent's sum of the raw rewards")
+    lo, hi = np.array(ranges).T
+    if not ((returns.min(0) >= lo).all() and (returns.max(0) <= hi).all()):
+        raise AssertionError(f"{label}: returns {returns.min(0)} .. "
+                             f"{returns.max(0)} outside {ranges}")
+    if (info["updates"] != want_updates or len(algo.metrics) != want_updates
+            or r["launches"]):
+        raise AssertionError(f"{label}: {info['updates']} learner steps for "
+                             f"{want_updates}, {r['launches']} sum-tree "
+                             f"launches")
+    if env.dim_info.is_continue:
+        lo_a = float(torch.cat([x for _, _, x, _ in log_]).min())
+        hi_a = float(torch.cat([x for _, _, _, x in log_]).max())
+        if not (lo_a >= 0.0 and hi_a <= 1.0):
+            raise AssertionError(f"{label}: env actions in [{lo_a}, {hi_a}]")
+    log_.clear()
+    r["kernels"] = marl_kernels(env, cls(env, cfg_cls(**extra),
+                                         device="cuda"), num_envs)
+    log(f"[marl {label}] {info['env_steps']} env steps, {info['updates']} "
+        f"learner steps, {info['episodes']} episodes (per-agent mean return "
+        f"{np.round(returns.mean(0), 2).tolist()}) in "
+        f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
+        f"env-steps/s, learner step {r['learn_ms']:.3f} ms, "
+        f"{r['kernels']:.1f} kernels per vector step, peak memory "
+        f"{r['peak_mib']:.1f} MiB, finite {r['checked']}, record == raw "
+        f"rewards' ({len(returns)} x {env.n_agents}), sumtree launches "
+        f"{r['launches']}")
+    return r
+
+
 # The learning checks, one recipe each: the env, the algo, its config's and
 # the loop config's fields (the off-policy loop unless ``driver`` says
-# "onpolicy"), the episodes read at each end, and the threshold the mean of
-# the last ones must clear. scripts/learning_seeds.py runs these same
-# recipes over seeds; each threshold is set from that spread.
+# "onpolicy" or "marl"), the episodes read at each end, and the threshold
+# the mean of the last ones (over agents too, for "marl") must clear.
+# scripts/learning_seeds.py runs these same recipes over seeds; each
+# threshold is set from that spread.
 LEARNING_CHECKS = {
     # the port on the CPU, seeds 0-19, read 40.1-431.9 as the mean of the
     # last 30 of 250 episodes, three seeds under 60; a uniform-random policy
@@ -1394,6 +1713,17 @@ LEARNING_CHECKS = {
                       adv_norm=True),
         loop=dict(num_envs=8, max_episodes=300, horizon=1024),
         read=(10, 30), threshold=300.0),
+    # MATD3 (MADDPG with twin=True, what the MATD3 factory builds) on
+    # simple_spread_v3, the JAX package's recipe (tests/test_marl.py:
+    # 279-289), which expects the agent-mean of the last 50 of 300 episodes
+    # above -20; read as the mean over agents and episodes. The port on the
+    # CPU, seeds 0-19, read -20.1 to -17.4; with every lr at 0 (--frozen),
+    # -25.7 to -21.5, so the threshold sits between the two
+    "matd3_spread": dict(
+        env="simple_spread_v3", algo="MADDPG", driver="marl",
+        algo_cfg=dict(twin=True, num_envs=8, actor_lr=1e-3, critic_lr=1e-3),
+        loop=dict(num_envs=8, max_episodes=300, chunk_size=128),
+        read=(10, 50), threshold=-20.8),
 }
 
 
@@ -1402,11 +1732,17 @@ def recipe_run(rec: dict, seed: int, device: str, algo_cls=None):
     with the loop's seed ``seed``; ``algo_cls`` replaces the recipe's algo
     class (a probe of it)."""
     from freerl_tpu_torch.envs import make
-    from freerl_tpu_torch.train import (OffPolicyConfig, OnPolicyConfig,
+    from freerl_tpu_torch.train import (MARLConfig, OffPolicyConfig,
+                                        OnPolicyConfig, train_marl,
                                         train_offpolicy, train_onpolicy)
 
     cls, cfg_cls = algo_classes(rec["algo"])
     env = make(rec["env"], device=device)
+    if rec.get("driver") == "marl":      # the multi-agent algos take the env
+        algo = (algo_cls or cls)(env, cfg_cls(**rec["algo_cfg"]),
+                                 device=device)
+        cfg = MARLConfig(seed=seed, **rec["loop"])
+        return env, algo, lambda: train_marl(env, algo, cfg)
     algo = (algo_cls or cls)(env.dim_info, cfg_cls(**rec["algo_cfg"]),
                              device=device)
     if rec.get("driver") == "onpolicy":
@@ -1491,10 +1827,15 @@ def main() -> int:
         + timed("her", phase_her))
     timed("card-vs-cpu onpolicy", phase_card_vs_cpu_onpolicy)
     kernel["launches_onpolicy"] = timed("onpolicy", phase_onpolicy)
+    timed("card-vs-cpu marl", phase_card_vs_cpu_marl)
+    kernel["launches_marl"] = sum(
+        timed(f"marl {label}", phase_marl, label)["launches"]
+        for label in MARL_PATHS)
     for name in LEARNING_CHECKS:
         launches = timed(f"learning {name}", phase_learning, name)
-        if LEARNING_CHECKS[name].get("driver") == "onpolicy":
-            kernel["launches_onpolicy"] += launches
+        driver = LEARNING_CHECKS[name].get("driver")
+        if driver in ("onpolicy", "marl"):
+            kernel[f"launches_{driver}"] += launches
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [kernel]}))

@@ -1,9 +1,16 @@
 from freerl_tpu_torch.algos import common
-from freerl_tpu_torch.algos.base import ExploreCtx, ExploreDraws, OffPolicyAlgo
+from freerl_tpu_torch.algos.base import (ExploreCtx, ExploreDraws, LearnDraws,
+                                         MultiAgentAlgo, OffPolicyAlgo)
 from freerl_tpu_torch.algos.ddpg import (DDPG, DDPGConfig, DDPGState, QCritic,
                                          SoftmaxActor, TanhActor,
                                          gumbel_softmax)
 from freerl_tpu_torch.algos.dqn import DQN, DQNConfig, DQNState, QNetwork
+from freerl_tpu_torch.algos.maac import (MAAC, MAACConfig, MAACCritics,
+                                         MAACState, SharedAttention,
+                                         SoftmaxActorNet)
+from freerl_tpu_torch.algos.maddpg import (MADDPG, MATD3, ATTCritic,
+                                           MADDPGConfig, MADDPGState)
+from freerl_tpu_torch.algos.masac import MASAC, MASACConfig, MASACState
 from freerl_tpu_torch.algos.ppo import (PPO, BetaPolicy, CategoricalPolicy,
                                         GaussianPolicy, PPOConfig, PPOState,
                                         Rollout, VCritic)
@@ -13,11 +20,14 @@ from freerl_tpu_torch.algos.sac import (SAC, GaussianActor, SACConfig,
                                         SACState, SoftmaxPolicy, TwinQTable)
 from freerl_tpu_torch.algos.td3 import TD3, TD3Config, TD3State, TwinQCritic
 
-__all__ = ["BetaPolicy", "CategoricalPolicy", "DDPG", "DDPGConfig",
-           "DDPGState", "DQN", "DQNConfig", "DQNState", "ExploreCtx",
-           "ExploreDraws", "GaussianActor", "GaussianPolicy", "OffPolicyAlgo",
-           "PPO", "PPOConfig", "PPOState", "QCritic", "QNetwork", "REINFORCE",
+__all__ = ["ATTCritic", "BetaPolicy", "CategoricalPolicy", "DDPG",
+           "DDPGConfig", "DDPGState", "DQN", "DQNConfig", "DQNState",
+           "ExploreCtx", "ExploreDraws", "GaussianActor", "GaussianPolicy",
+           "LearnDraws", "MAAC", "MAACConfig", "MAACCritics", "MAACState",
+           "MADDPG", "MADDPGConfig", "MADDPGState", "MASAC", "MASACConfig",
+           "MASACState", "MATD3", "MultiAgentAlgo", "OffPolicyAlgo", "PPO",
+           "PPOConfig", "PPOState", "QCritic", "QNetwork", "REINFORCE",
            "REINFORCEConfig", "REINFORCEState", "Rollout", "SAC", "SACConfig",
-           "SACState", "SoftmaxActor", "SoftmaxPolicy", "TD3", "TD3Config",
-           "TD3State", "TanhActor", "TwinQCritic", "TwinQTable", "VCritic",
-           "common", "gumbel_softmax"]
+           "SACState", "SharedAttention", "SoftmaxActor", "SoftmaxActorNet",
+           "SoftmaxPolicy", "TD3", "TD3Config", "TD3State", "TanhActor",
+           "TwinQCritic", "TwinQTable", "VCritic", "common", "gumbel_softmax"]

@@ -58,13 +58,18 @@ class ExploreDraws:
     ou:      (num_envs, A) standard normals of the Ornstein-Uhlenbeck step;
     gumbel:  (B, A) Gumbel noise of a categorical sample;
     random:  the warm-up actions, (B, A) uniform in +-max_action or (B,)
-             indices; drawn only during the warm-up.
+             indices; drawn only during the warm-up;
+    policy:  standard normals of a sampled policy where ``normal`` is the
+             exploration noise (MADDPG's Gaussian actor).
+
+    Multi-agent algos put an agent axis after B: (B, n_agents, act_pad).
     """
 
     normal: Optional[torch.Tensor] = None
     ou: Optional[torch.Tensor] = None
     gumbel: Optional[torch.Tensor] = None
     random: Optional[torch.Tensor] = None
+    policy: Optional[torch.Tensor] = None
 
 
 def draw_random_actions(dim_info, b: int, generator: torch.Generator,
@@ -143,4 +148,93 @@ class OffPolicyAlgo:
         batch = buffer.sample(generator, self.cfg.batch_size)
         state, metrics, _ = self.update(state, batch,
                                         self.draw_update(batch, generator))
+        return state, buffer, metrics
+
+
+# ---------------------------------------------------------------------------
+# The multi-agent off-policy family (MADDPG, MASAC, MAAC)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class LearnDraws:
+    """The draws of one multi-agent learner step; a field an algo does not
+    use is None. Draws are laid out as actions are, ``(..., A, P)``, with
+    ``P`` the widest agent's action width: agent j's are the first
+    ``act_dims[j]`` columns of ``[..., j, :]``.
+
+    idx:    (A, B) replay indices, a fresh batch for each updating agent
+            (MADDPG, MASAC), or (B,), one batch for all (MAAC);
+    smooth: (A, B, A, P) standard normals of MATD3's target-policy noise:
+            ``[i, :, j]`` on agent j's next action in agent i's target;
+    next:   (A, B, A, P) standard normals of the sampled next actions:
+            ``[i, :, j]``, agent j's in agent i's target (MASAC; MADDPG's
+            Gaussian actor);
+    new:    standard normals of the actor loss's sampled actions: (A, B, A,
+            P), ``[i, :, j]`` agent j's in agent i's loss (MASAC), or
+            (B, A, P), agent i's own at ``[:, i]`` (MADDPG's Gaussian
+            actor);
+    gumbel: (B, A, P) Gumbel noise of each agent's sampled next action
+            (MAAC).
+    """
+
+    idx: torch.Tensor
+    smooth: Optional[torch.Tensor] = None
+    next: Optional[torch.Tensor] = None
+    new: Optional[torch.Tensor] = None
+    gumbel: Optional[torch.Tensor] = None
+
+
+class MultiAgentAlgo(OffPolicyAlgo):
+    """What MADDPG, MASAC and MAAC share: the per-agent widths of a
+    multi-agent env (observations ``(..., A, O_pad)``, actions
+    ``(..., A, P)`` or ``(..., A)`` indices), slicing and padding, and a
+    ``learn_step`` whose draws include the replay indices:
+    ``draw_update(buffer, generator)`` then ``update(state, buffer,
+    draws)``."""
+
+    def __init__(self, env, cfg, device="cuda"):
+        check_axis_name(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.n_agents = env.n_agents
+        self.obs_dims = tuple(env.agent_obs_dims)
+        self.act_dims = tuple(env.agent_act_dims)
+        self.act_pad = max(self.act_dims)
+
+    def _obs(self, obs: torch.Tensor, i: int) -> torch.Tensor:
+        """Agent i's true-width slice of (..., A, O_pad) observations."""
+        return obs[..., i, :self.obs_dims[i]]
+
+    def _act(self, act: torch.Tensor, i: int) -> torch.Tensor:
+        """Agent i's true-width slice of (..., A, P) actions or draws."""
+        return act[..., i, :self.act_dims[i]]
+
+    def _stack(self, acts: list) -> torch.Tensor:
+        """Per-agent true-width actions, zero-padded to (..., A, P)."""
+        return torch.stack([torch.nn.functional.pad(a, (0, self.act_pad
+                                                        - a.shape[-1]))
+                            for a in acts], dim=-2)
+
+    def _joint(self, obs: torch.Tensor, acts: list):
+        """A centralized critic's input: every agent's true-width
+        observation, and the actions ``acts`` (one per agent), each
+        concatenated."""
+        return (torch.cat([self._obs(obs, j) for j in range(self.n_agents)],
+                          dim=-1), torch.cat(acts, dim=-1))
+
+    def _normals(self, shape, generator: torch.Generator) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=self.device)
+
+    def _idx(self, buffer, generator: torch.Generator,
+             per_agent: bool = True) -> torch.Tensor:
+        """Replay indices: (A, B), one batch per agent, or (B,)."""
+        b = self.cfg.batch_size
+        if not per_agent:
+            return buffer.sample_idx(generator, b)
+        return buffer.sample_idx(generator, self.n_agents * b).reshape(
+            self.n_agents, b)
+
+    def learn_step(self, state, buffer, generator: torch.Generator,
+                   num_envs: int):
+        state, metrics = self.update(state, buffer,
+                                     self.draw_update(buffer, generator))
         return state, buffer, metrics

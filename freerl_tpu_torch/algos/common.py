@@ -21,6 +21,12 @@ def polyak(target_params: Iterable[torch.Tensor],
     torch._foreach_add_(targets, torch._foreach_mul(list(online_params), tau))
 
 
+def net_params(nets: Iterable[torch.nn.Module]) -> list[torch.Tensor]:
+    """Every parameter of several nets, in order: one group for one
+    ``polyak`` call (the multi-agent family's per-agent nets)."""
+    return [p for net in nets for p in net.parameters()]
+
+
 def td_target(reward: torch.Tensor, gamma, next_value: torch.Tensor,
               done: torch.Tensor) -> torch.Tensor:
     """r + gamma * V' * (1 - done); gamma may be per-sample (n-step)."""

@@ -27,6 +27,14 @@ from freerl_tpu_torch.envs.classic import (
 )
 from freerl_tpu_torch.envs.goal import GoalPendulum
 from freerl_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderContinuous
+from freerl_tpu_torch.envs.masked import ActionMaskWrapper, MaskedSpread
+from freerl_tpu_torch.envs.mpe import (
+    MPEBase,
+    SimpleAdversary,
+    SimpleSpread,
+    SimpleTag,
+    SimpleWorldComm,
+)
 from freerl_tpu_torch.envs.tabular import FrozenLake, Taxi
 
 _REGISTRY = {
@@ -40,15 +48,15 @@ _REGISTRY = {
     "FrozenLake-v1": FrozenLake,
     "Taxi-v3": Taxi,
     "GoalPendulum-v1": GoalPendulum,
+    "simple_spread_v3": SimpleSpread,
+    "simple_adversary_v3": SimpleAdversary,
+    "simple_tag_v3": SimpleTag,
+    "simple_world_comm_v3": SimpleWorldComm,
 }
 
 # envs of the JAX package not ported yet, with the ROADMAP queue A item
 # that ports them
 _PENDING = {
-    "simple_spread_v3": "queue A, slice 5 (envs/mpe.py)",
-    "simple_adversary_v3": "queue A, slice 5 (envs/mpe.py)",
-    "simple_tag_v3": "queue A, slice 5 (envs/mpe.py)",
-    "simple_world_comm_v3": "queue A, slice 5 (envs/mpe.py)",
     "deep-sea-treasure-v0": "queue A, slice 6 (envs/mo.py)",
     "PixelCartPole-v1": "queue A, slice 6 (envs/pixel.py)",
 }
@@ -73,6 +81,7 @@ def make(name: str, dis_to_con: bool = False, n_bins: int = 16,
 
 
 __all__ = [
+    "ActionMaskWrapper",
     "BipedalWalker",
     "CartPole",
     "DisToConWrapper",
@@ -82,9 +91,15 @@ __all__ = [
     "GoalPendulum",
     "LunarLander",
     "LunarLanderContinuous",
+    "MPEBase",
+    "MaskedSpread",
     "MountainCar",
     "MountainCarContinuous",
     "Pendulum",
+    "SimpleAdversary",
+    "SimpleSpread",
+    "SimpleTag",
+    "SimpleWorldComm",
     "StepOut",
     "Taxi",
     "make",

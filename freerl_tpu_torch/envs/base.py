@@ -75,24 +75,26 @@ class StepOut:
 
 
 def record_scalarize(env: Env, reward: torch.Tensor) -> torch.Tensor:
-    """Scalarize a (possibly vector) step reward for episode records:
-    multi-objective envs provide ``record_weights``; scalar rewards pass
-    through."""
-    if reward.dim() > 1:
-        weights = getattr(env, "record_weights", None)
-        if weights is None:
-            weights = torch.ones(reward.shape[-1])
-        return reward @ torch.as_tensor(weights, dtype=torch.float32,
-                                        device=reward.device)
-    return reward
+    """The step reward as episode records add it up: a multi-objective env's
+    vector reward scalarized with its ``record_weights``; any other reward
+    as it is (a multi-agent (N, A) reward keeps its agent axis)."""
+    weights = getattr(env, "record_weights", None)
+    if weights is None:
+        return reward
+    return reward @ torch.as_tensor(weights, dtype=torch.float32,
+                                    device=reward.device)
+
+
+def row_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (B,) row mask shaped to broadcast over every trailing dim of x."""
+    return mask.reshape(mask.shape + (1,) * (x.dim() - 1))
 
 
 def _select(mask: torch.Tensor, a, b):
     """Field-wise ``where(mask, a, b)`` over two state dataclasses, with
     ``mask`` of shape (B,) broadcast over trailing dims."""
     def pick(x, y):
-        m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
-        return torch.where(m, x, y)
+        return torch.where(row_mask(mask, x), x, y)
 
     return type(a)(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))
                       for f in dataclasses.fields(a)})
@@ -110,7 +112,7 @@ def step_auto_reset(env: Env, state, action, step_draw,
     reset_state, reset_obs = env.reset(reset_draw)
     return StepOut(
         state=_select(done, reset_state, new_state),
-        carry_obs=torch.where(done[:, None], reset_obs, obs),
+        carry_obs=torch.where(row_mask(done, obs), reset_obs, obs),
         next_obs=obs,
         reward=reward,
         terminated=terminated,

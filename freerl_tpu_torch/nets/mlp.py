@@ -9,7 +9,14 @@ explicit ``torch.Generator``:
 - ``'final'``: weight and bias both U(+-final_scale), 3e-3 by default
   (DDPG's final layers);
 - ``'orthogonal'``: an orthogonal weight scaled by ``gain`` (sqrt(2) by
-  default), zero bias (PPO's orthogonal-init trick).
+  default), zero bias (PPO's orthogonal-init trick);
+- ``'flax'``: flax ``nn.Dense``'s defaults, a ``lecun_normal`` weight (a
+  normal of std ``1/sqrt(fan_in) / 0.8796...`` truncated at +-2 std, so its
+  variance is ``1/fan_in``) and a zero bias (the attention critics, which
+  the JAX package builds from plain ``nn.Dense``).
+
+``bias=False`` makes a layer with no bias parameter at all (flax's
+``use_bias=False``).
 
 Layers are created, and so initialised, in the JAX modules' order. Weights
 are stored torch-style, ``(out, in)``; flax stores ``(in, out)`` (see
@@ -20,6 +27,7 @@ holds; the two RNGs never draw the same matrix.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -31,10 +39,14 @@ _ACTS = {
     "relu": F.relu,
     "tanh": torch.tanh,
     "leaky_relu": F.leaky_relu,
-    "gelu": F.gelu,
+    # flax's nn.gelu is the tanh approximation; F.gelu's default is erf
+    "gelu": functools.partial(F.gelu, approximate="tanh"),
 }
 
-SCHEMES = ("torch", "fanin", "final", "orthogonal")
+SCHEMES = ("torch", "fanin", "final", "orthogonal", "flax")
+
+# the std of a unit normal truncated at +-2, which lecun_normal divides out
+_TRUNC_STD = 0.87962566103423978
 
 
 class Dense(nn.Module):
@@ -43,14 +55,24 @@ class Dense(nn.Module):
     def __init__(self, in_features: int, features: int,
                  generator: torch.Generator | None = None, device="cuda",
                  scheme: str = "torch", final_scale: float = 3e-3,
-                 gain: float = math.sqrt(2.0)):
+                 gain: float = math.sqrt(2.0), bias: bool = True):
         super().__init__()
         if scheme not in SCHEMES:
             raise ValueError(f"unknown init scheme {scheme!r}")
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.bias = (nn.Parameter(torch.empty(features, device=device))
+                     if bias else None)
         with torch.no_grad():
+            if scheme == "flax":
+                std = 1.0 / math.sqrt(in_features) / _TRUNC_STD
+                nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if bias:
+                    nn.init.zeros_(self.bias)
+                return
+            if not bias:
+                raise ValueError(f"scheme {scheme!r} always has a bias")
             if scheme == "orthogonal":
                 nn.init.orthogonal_(self.weight, gain, generator=generator)
                 nn.init.zeros_(self.bias)

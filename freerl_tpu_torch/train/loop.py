@@ -23,8 +23,8 @@ import torch
 
 from freerl_tpu_torch.algos.base import ExploreCtx
 from freerl_tpu_torch.core.types import Transition
-from freerl_tpu_torch.envs.base import (Env, record_scalarize, vec_reset,
-                                        vec_step_auto_reset)
+from freerl_tpu_torch.envs.base import (Env, record_scalarize, row_mask,
+                                        vec_reset, vec_step_auto_reset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,16 +87,18 @@ def example_transition(env: Env, algo=None) -> Transition:
 def record_episodes(env: Env, c, reward: torch.Tensor,
                     dones: torch.Tensor, record_cap: int) -> None:
     """Episode accounting on a carry ``c`` with ``ep_return``,
-    ``ep_counter`` and ``episode_returns`` (this loop's and the on-policy
-    driver's): write finished returns chronologically. Slots past the
-    record, and rows still running, land in the drop slot ``record_cap``
-    (the masked form of JAX's ``mode="drop"`` scatter)."""
+    ``ep_counter`` and ``episode_returns`` (this loop's, the on-policy
+    driver's and the multi-agent driver's): write finished returns
+    chronologically. Slots past the record, and rows still running, land in
+    the drop slot ``record_cap`` (the masked form of JAX's ``mode="drop"``
+    scatter). A multi-agent reward (N, A) keeps its agent axis, into an
+    (record_cap + 1, A) record (``record_scalarize``)."""
     ret = c.ep_return + record_scalarize(env, reward)
     offs = torch.cumsum(dones.to(torch.int64), 0) - 1
     slot = torch.where(dones, c.ep_counter + offs, record_cap)
     c.episode_returns[slot.clamp_(max=record_cap)] = ret
     c.ep_counter = c.ep_counter + dones.sum()
-    c.ep_return = torch.where(dones, 0.0, ret)
+    c.ep_return = torch.where(row_mask(dones, ret), 0.0, ret)
 
 
 def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,

@@ -69,7 +69,7 @@ def _check_supported(env: Env, algo, cfg: OnPolicyConfig, mesh) -> None:
                                                    False):
         raise NotImplementedError(
             "multi-agent envs come with the multi-agent slice (ROADMAP.md "
-            "queue A, slice 5, item 10)")
+            "queue A, slice 5, item 12)")
     if hasattr(algo, "init_policy_carry"):
         raise NotImplementedError(
             "recurrent policies come with the multi-agent slice (ROADMAP.md "

@@ -1,7 +1,9 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
     python3 scripts/torch_profile.py
-        [--config per|uniform|rainbow|ddpg|td3|sac|ppo_bipedal|ppo_cartpole|reinforce]
+        [--config per|uniform|rainbow|ddpg|td3|sac|ppo_bipedal|ppo_cartpole|
+                  reinforce|maddpg_spread|matd3_spread|masac_spread|
+                  maac_spread|maddpg_worldcomm]
         [--num-envs 1024] [--steps 32]
 
 Builds the actor-learner loop of ``train_offpolicy`` at full width (buffer
@@ -9,15 +11,17 @@ Builds the actor-learner loop of ``train_offpolicy`` at full width (buffer
 sum-tree sampler (``per``, the default), uniform replay (``uniform``) or
 all six tricks (``rainbow``: double, dueling, PER tree, noisy, 3-step,
 C51); or DDPG, TD3 or SAC on LunarLanderContinuous-v2 (the configs'
-defaults, 2x128 nets). Or the on-policy loop of ``train_onpolicy``: PPO
-with its defaults (2x128 nets, 10 epochs of minibatch 64) on
-BipedalWalker-v3 (``ppo_bipedal``) or CartPole-v1 (``ppo_cartpole``), T
-16, or REINFORCE on CartPole-v1 (``reinforce``), T 64; ``--steps`` is
-then ignored, and an iteration (rollout of T vector steps, then one
+defaults, 2x128 nets); or the multi-agent loop of ``train_marl`` at the
+configs' defaults: MADDPG, MATD3 or MASAC on simple_spread_v3, MAAC on its
+discrete form, MADDPG on simple_world_comm_v3. Or the on-policy loop of
+``train_onpolicy``: PPO with its defaults (2x128 nets, 10 epochs of
+minibatch 64) on BipedalWalker-v3 (``ppo_bipedal``) or CartPole-v1
+(``ppo_cartpole``), T 16, or REINFORCE on CartPole-v1 (``reinforce``), T
+64; ``--steps`` is then ignored, and an iteration (rollout of T vector steps, then one
 update) is broken into the rollout's phases (sample, env step, process:
 reward and obs hooks, episode record, rollout write) and the update,
 with the kernels per vector step and per Adam step. The off-policy loop
-is warmed up for one chunk, then:
+(and the multi-agent one) is warmed up for one chunk, then:
 
 1. times ``--steps`` vector steps as the loop runs them (no sync inside);
 2. times each phase of a vector step (explore, env step, replay add,
@@ -44,9 +48,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import adam_steps  # noqa: E402
+from chip_smoke import adam_steps, device_kernels, marl_env  # noqa: E402
 from freerl_tpu_torch import algos  # noqa: E402
-from freerl_tpu_torch.train import loop  # noqa: E402
+from freerl_tpu_torch.train import loop, marl  # noqa: E402
 from freerl_tpu_torch.envs import make  # noqa: E402
 
 # config: (env, algo, config keywords)
@@ -60,22 +64,21 @@ CONFIGS = {
     "td3": ("LunarLanderContinuous-v2", "TD3", dict(batch_size=256)),
     "sac": ("LunarLanderContinuous-v2", "SAC", dict(batch_size=256)),
 }
+# multi-agent config of train_marl, at the configs' defaults (2x128, batch
+# 256, replay 1e6): (env, algo, config keywords); MATD3 is MADDPG with twin
+MARL = {
+    "maddpg_spread": ("simple_spread_v3", "MADDPG", dict()),
+    "matd3_spread": ("simple_spread_v3", "MADDPG", dict(twin=True)),
+    "masac_spread": ("simple_spread_v3", "MASAC", dict()),
+    "maac_spread": ("simple_spread_v3 discrete", "MAAC", dict()),
+    "maddpg_worldcomm": ("simple_world_comm_v3", "MADDPG", dict()),
+}
 # on-policy config: (env, algo, config keywords, T)
 ONPOLICY = {
     "ppo_bipedal": ("BipedalWalker-v3", "PPO", dict(), 16),
     "ppo_cartpole": ("CartPole-v1", "PPO", dict(), 16),
     "reinforce": ("CartPole-v1", "REINFORCE", dict(), 64),
 }
-
-
-def device_kernels(prof) -> list:
-    """The profiler's device events, without the spans of user annotations
-    such as "Optimizer.step#Adam.step", which cover kernels counted on
-    their own."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("Optimizer.")]
 
 
 def profile_onpolicy(label: str, n: int, card: str) -> dict:
@@ -194,8 +197,8 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY),
-                    default="per")
+    ap.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY)
+                    + sorted(MARL), default="per")
     ap.add_argument("--num-envs", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args()
@@ -211,37 +214,50 @@ def main() -> int:
         print(json.dumps(profile_onpolicy(label, args.num_envs, card)))
         return 0
 
-    env_name, algo_name, kwargs = CONFIGS[label]
-    env = make(env_name, device="cuda")
-    if algo_name != "DQN":
-        kwargs = dict(kwargs, num_envs=args.num_envs)
-    algo = getattr(algos, algo_name)(
-        env.dim_info, getattr(algos, algo_name + "Config")(**kwargs),
-        device="cuda")
-    cfg = loop.OffPolicyConfig(num_envs=args.num_envs, start_steps=500,
-                               chunk_size=64, max_episodes=10**9)
-    generator = torch.Generator(device="cuda").manual_seed(0)
     n = args.num_envs
     record_cap = 10**6
-    carry = loop.LoopCarry(
-        algo_state=algo.init(generator),
-        buffer=algo.make_buffer(loop.example_transition(env, algo),
-                                num_envs=n),
-        env_state=None, obs=None,
-        ep_return=torch.zeros(n, device="cuda"),
-        done_prev=torch.zeros(n, dtype=torch.bool, device="cuda"),
-        ep_counter=torch.zeros((), dtype=torch.int64, device="cuda"),
-        episode_returns=torch.zeros(record_cap + 1, device="cuda"),
-    )
-    carry.env_state, carry.obs = loop.vec_reset(env, generator, n)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    if label in MARL:
+        env_name, algo_name, kwargs = MARL[label]
+        env = marl_env(env_name, "cuda")
+        algo = getattr(algos, algo_name)(
+            env, getattr(algos, algo_name + "Config")(**kwargs),
+            device="cuda")
+        driver = marl
+        cfg = marl.MARLConfig(num_envs=n, start_steps=500, chunk_size=64)
+        carry = marl.start(env, algo, n, generator, record_cap)
+    else:
+        env_name, algo_name, kwargs = CONFIGS[label]
+        env = make(env_name, device="cuda")
+        if algo_name != "DQN":
+            kwargs = dict(kwargs, num_envs=n)
+        algo = getattr(algos, algo_name)(
+            env.dim_info, getattr(algos, algo_name + "Config")(**kwargs),
+            device="cuda")
+        driver = loop
+        cfg = loop.OffPolicyConfig(num_envs=n, start_steps=500,
+                                   chunk_size=64, max_episodes=10**9)
+        carry = loop.LoopCarry(
+            algo_state=algo.init(generator),
+            buffer=algo.make_buffer(loop.example_transition(env, algo),
+                                    num_envs=n),
+            env_state=None, obs=None,
+            ep_return=torch.zeros(n, device="cuda"),
+            done_prev=torch.zeros(n, dtype=torch.bool, device="cuda"),
+            ep_counter=torch.zeros((), dtype=torch.int64, device="cuda"),
+            episode_returns=torch.zeros(record_cap + 1, device="cuda"),
+        )
+        carry.env_state, carry.obs = loop.vec_reset(env, generator, n)
+    # the multi-agent driver maps stored [-1, 1] actions to the MPE box
+    remap = label in MARL and env.dim_info.is_continue
     for _ in range(cfg.chunk_size):                       # warm-up chunk
-        loop.vector_step(env, algo, cfg, carry, generator, record_cap)
+        driver.vector_step(env, algo, cfg, carry, generator, record_cap)
     torch.cuda.synchronize()
 
     # 1. the loop as it runs
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        loop.vector_step(env, algo, cfg, carry, generator, record_cap)
+        driver.vector_step(env, algo, cfg, carry, generator, record_cap)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -263,7 +279,8 @@ def main() -> int:
         _, action = timed("explore", lambda: algo.explore(
             carry.algo_state, carry.obs, generator, ctx))
         out = timed("env_step", lambda: loop.vec_step_auto_reset(
-            env, carry.env_state, action, generator, n))
+            env, carry.env_state, (action + 1.0) / 2.0 if remap else action,
+            generator, n))
         timed("add", lambda: carry.buffer.add(loop.Transition(
             obs=carry.obs, action=action, reward=out.reward,
             next_obs=out.next_obs, done=out.terminated,
@@ -284,7 +301,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            loop.vector_step(env, algo, cfg, carry, generator, record_cap)
+            driver.vector_step(env, algo, cfg, carry, generator, record_cap)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof)

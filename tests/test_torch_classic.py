@@ -227,7 +227,7 @@ def test_make_registry_and_dis_to_con():
         assert env.dim_info.action_dim == 8 and env.name == f"{name}-dis8"
     assert make("FrozenLake-v1", is_slippery=False,
                 device="cpu").n_outcomes == 1
-    for name in ("simple_spread_v3", "PixelCartPole-v1", "NoSuchEnv-v0"):
+    for name in ("deep-sea-treasure-v0", "PixelCartPole-v1", "NoSuchEnv-v0"):
         with pytest.raises(KeyError, match="not ported"):
             make(name, device="cpu")
 

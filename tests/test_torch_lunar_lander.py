@@ -252,7 +252,7 @@ def test_make_registry():
     assert env.dim_info.obs_dim == 8 and env.dim_info.action_dim == 4
     assert env.device == torch.device("cpu")
     with pytest.raises(KeyError, match="queue A"):
-        make("simple_spread_v3", device="cpu")
+        make("deep-sea-treasure-v0", device="cpu")
 
 
 def test_vec_wrappers_are_seeded():

@@ -190,7 +190,7 @@ def test_driver_refuses_what_it_does_not_take_yet():
         def init_policy_carry(self, n):
             return None
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         train_onpolicy(TwoAgents(), algo, OnPolicyConfig())
     with pytest.raises(NotImplementedError, match="item 15"):
         train_onpolicy(env, Recurrent(), OnPolicyConfig())
