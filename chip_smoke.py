@@ -65,13 +65,32 @@ Phases (any failure raises, and the script exits non-zero):
     scenario's ranges, the learner must step once per vector step, and
     none of them launches the sum-tree kernel; each path's kernels per
     vector step are profiled;
-15. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
-    on Pendulum-v1, PPO on CartPole-v1, MATD3 on simple_spread_v3), seed
-    0: the mean return of the last episodes must clear each recipe's
-    threshold;
-16. print one JSON line describing each kernel (with its launches on the
-    main path, and on the Rainbow, continuous, on-policy and multi-agent
-    paths), the card line, and the result line.
+15. the multi-agent on-policy slice on the card against the CPU, at full
+    width from identical params and draws: one ``sample_action`` and one
+    full update of MAPPO (stacked, all 12 tricks, the attention critic,
+    masked, world comm), IPPO on simple_adversary_v3, HAPPO, MAT
+    (discrete and continuous), rMAPPO and rIPPO (their hidden states
+    carried over 16 sampling steps), each update that of a (T 16, N 64)
+    rollout, every Adam step held against the CPU's, free-running for
+    the variant's first ``FREE_STEPS`` steps and from the CPU's state
+    after that;
+16. train_onpolicy with the configs' defaults (2x128; MAT n_embd 64;
+    rMAPPO GRU 64) but ``num_envs`` and ``horizon``: MAPPO on
+    simple_spread_v3 (1024 envs, T 4, 7 iterations), IPPO on
+    simple_adversary_v3, HAPPO and MAT on spread and MAPPO on
+    simple_world_comm_v3 (1024 envs, T 4, 2 iterations), rMAPPO on spread
+    (256 envs, one 10-step chunk); each agent's running return and the
+    (E, A) record equal the RAW rewards' sums, one update per iteration,
+    no sum-tree launch; kernels per vector step and per Adam step
+    profiled;
+17. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+    on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
+    simple_spread_v3), seed 0: the mean return of the last episodes must
+    clear each recipe's threshold;
+18. print one JSON line describing each kernel (with its launches on the
+    main path, and on the Rainbow, continuous, on-policy, multi-agent
+    on-policy and multi-agent paths), the card line, and the result
+    line.
 
 It needs no network and builds everything from the checkout.
 """
@@ -480,13 +499,16 @@ RAINBOW = dict(double=True, dueling=True, per=True, per_sampler="tree",
 
 
 def to_device(x, dev):
-    """A tensor, or a dataclass / list / tuple of tensors, on ``dev``."""
+    """A tensor, or a dataclass / list / tuple / dict of tensors, on
+    ``dev``."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     if isinstance(x, (list, tuple)):
         return type(x)(to_device(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
     return type(x)(**{f.name: to_device(getattr(x, f.name), dev)
                       for f in dataclasses.fields(x)})
 
@@ -806,7 +828,8 @@ def probe(algo_cls):
     return Probe
 
 
-LOSSES = ("loss", "critic_loss", "actor_loss", "alpha")
+LOSSES = ("loss", "critic_loss", "actor_loss", "alpha", "adv_mean",
+          "factor_mean")
 
 
 def check_metrics(label: str, algo) -> list:
@@ -1249,25 +1272,28 @@ def onpolicy_probe(algo_cls):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.metrics, self.events, self.steps, self.windows = [], [], [], []
-            self.raw, self.stored = [], []
+            self.raw, self.stored, self.step_events = [], [], []
 
         def process_reward(self, state, reward, episode_done):
             state, stored = super().process_reward(state, reward,
                                                    episode_done)
             self.raw.append((reward.clone(), episode_done.clone()))
             self.stored.append(stored.clone())
+            self.step_events.append(torch.cuda.Event(enable_timing=True))
+            self.step_events[-1].record()
             return state, stored
 
-        def update(self, state, rollout, draws, episodes=None):
-            before = adam_steps(state.opt)
+        def update(self, state, rollout, draws, episodes=None, **kw):
+            before = state_adam_steps(state)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            state, metrics = super().update(state, rollout, draws, episodes)
+            state, metrics = super().update(state, rollout, draws, episodes,
+                                            **kw)
             end.record()
             self.events.append((start, end))
             self.metrics.append(metrics)
-            self.steps.append(adam_steps(state.opt) - before)
+            self.steps.append(state_adam_steps(state) - before)
             self.windows.append(rollout.adv_done.clone())
             return state, metrics
 
@@ -1679,6 +1705,415 @@ def phase_marl(label: str) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# The multi-agent on-policy slice
+# ---------------------------------------------------------------------------
+def state_nets(state) -> list:
+    """Every net of a multi-agent on-policy state, in a fixed order: the
+    actors and critics (per agent, stacked, or the attention critics), or
+    MAT's encoder and decoder."""
+    if hasattr(state, "encoder"):
+        return [state.encoder, state.decoder]
+    nets = []
+    for v in (state.actors, state.critics):
+        nets += v if isinstance(v, list) else [v]
+    return nets
+
+
+def state_adam_steps(state) -> int:
+    """The Adam steps every optimizer of a learner state has taken."""
+    opts = [getattr(state, "opt", None)]
+    for field in ("opts", "actor_opts", "critic_opts"):
+        opts += getattr(state, field, [])
+    return sum(adam_steps(o) for o in opts if o is not None)
+
+
+def marl_onpolicy_algo(algo_name: str, env, dev: str, probe: bool = False,
+                       **kw):
+    """An algo of the multi-agent on-policy family with its config's
+    defaults but ``kw``; IPPO and RIPPO are MAPPO and rMAPPO with the
+    configs their factories make. ``probe``: as ``onpolicy_probe``."""
+    from freerl_tpu_torch import algos
+
+    if algo_name in ("IPPO", "RIPPO"):
+        cfg_cls = getattr(algos, {"IPPO": "MAPPOConfig",
+                                  "RIPPO": "RMAPPOConfig"}[algo_name])
+        made = getattr(algos, algo_name)(env, cfg_cls(**kw), device=dev)
+        cls, cfg = type(made), made.cfg
+    else:
+        cls = getattr(algos, algo_name)
+        cfg = getattr(algos, algo_name + "Config")(**kw)
+    return (onpolicy_probe(cls) if probe else cls)(env, cfg, device=dev)
+
+
+def marl_onpolicy_rollout(env, t: int, n: int, rng, per_dim_logp=False,
+                          mask_dim=0) -> dict:
+    """A random (T, N) rollout in ``env``'s layout; under ``mask_dim`` each
+    obs ends in a 0/1 mask that allows the stored action."""
+    a, di = env.n_agents, env.dim_info
+    obs = rng.randn(t, n, a, di.obs_dim).astype(np.float32)
+    if di.is_continue:
+        action = rng.uniform(-1, 1, (t, n, a, di.action_dim)).astype(
+            np.float32)
+    else:
+        action = rng.randint(0, di.action_dim, (t, n, a))
+    if mask_dim:
+        mask = (rng.rand(t, n, a, mask_dim) < 0.6).astype(np.float32)
+        np.put_along_axis(mask, action[..., None], 1.0, axis=-1)
+        obs[..., -mask_dim:] = mask
+    ends = rng.rand(t, n) < 0.05
+    lp = (t, n, a) + ((di.action_dim,) if per_dim_logp else ())
+    return dict(obs=obs, action=action,
+                log_pi=(rng.randn(*lp) * 0.1 - 1.6).astype(np.float32),
+                reward=rng.randn(t, n, a).astype(np.float32),
+                next_obs=rng.randn(t, n, a, di.obs_dim).astype(np.float32),
+                done=ends & (rng.rand(t, n) < 0.5), adv_done=ends)
+
+
+# label: (env, algo, config fields); at the configs' full widths
+MARL_ONPOLICY_VARIANTS = {
+    "MAPPO stacked": ("simple_spread_v3", "MAPPO", dict()),
+    "MAPPO 12 tricks": ("simple_spread_v3", "MAPPO", dict(
+        adv_norm=True, obs_norm=True, reward_scaling=True,
+        orthogonal_init=True, adam_eps=True, lr_decay=True, value_clip=True,
+        huber_loss=True, layer_norm=True, feature_norm=True, num_envs=64)),
+    "IPPO adversary": ("simple_adversary_v3", "IPPO", dict()),
+    "MAPPO attention": ("simple_spread_v3", "MAPPO", dict(attention=True)),
+    "MAPPO masked": ("MaskedSpread", "MAPPO", dict(masked=True, mask_dim=5)),
+    "MAPPO world comm": ("simple_world_comm_v3", "MAPPO", dict()),
+    "HAPPO": ("simple_spread_v3", "HAPPO", dict()),
+    "MAT discrete": ("simple_spread_v3 discrete", "MAT", dict()),
+    "MAT continuous": ("simple_spread_v3", "MAT", dict()),
+    "RMAPPO": ("simple_spread_v3", "RMAPPO", dict(lr_decay=True)),
+    "RIPPO": ("simple_adversary_v3", "RIPPO", dict()),
+}
+
+
+def marl_onpolicy_rollouts(t: int, n: int) -> dict:
+    """Each variant's random (t, n) rollout, drawn in the table's order from
+    one seed (``scripts/update_sensitivity.py`` replays the phase's)."""
+    rng = np.random.RandomState(7)
+    out = {}
+    for label, (env_name, algo_name, kw) in MARL_ONPOLICY_VARIANTS.items():
+        env = marl_env(env_name, "cpu")
+        out[label] = marl_onpolicy_rollout(
+            env, t, n, rng, mask_dim=kw.get("mask_dim"),
+            per_dim_logp=algo_name == "MAT" and env.dim_info.is_continue)
+    return out
+
+
+# label: the Adam steps the card runs free before each step is forced: half
+# the first step at which any run that differs from the CPU's by rounding
+# alone (the CPU in float64; the CPU and the card from params perturbed by
+# 1e-7, three seeds) leaves the tolerance (``scripts/update_sensitivity.py``
+# on the card, PERF.md section 6); None: no such run left it, the whole
+# update runs free
+FREE_STEPS = {
+    "MAPPO stacked": 25, "MAPPO 12 tricks": 0, "IPPO adversary": 46,
+    "MAPPO attention": 9, "MAPPO masked": 0, "MAPPO world comm": 51,
+    "HAPPO": 87, "MAT discrete": None, "MAT continuous": None,
+    "RMAPPO": None, "RIPPO": None,
+}
+
+
+class AdamSteps:
+    """Every Adam step of the multi-agent on-policy updates (the
+    ``step`` the algos of ``algos/mappo.py``, ``happo.py``, ``mat.py`` and
+    ``rmappo.py`` share), recorded or held against a record.
+
+    On the CPU (``record``) each step's resulting params, Adam moments and
+    lr are kept. On the card each step's result is held against the CPU's.
+    The first ``free`` steps (all of them if None) run free; from then on
+    each step is taken from the state the CPU's step started from, and
+    the card continues from the CPU's result: a full update is tens of
+    Adam steps through ReLUs, clips and minima, and late in it float32
+    rounding alone (the CPU in float64, or from params perturbed by 1e-7)
+    moves hundreds of weights past 1e-5, so from there each step is
+    compared on its own."""
+
+    MODULES = ("mappo", "happo", "mat", "rmappo")
+
+    def __init__(self, cpu_steps=None, free: int | None = 0):
+        self.steps = [] if cpu_steps is None else cpu_steps
+        self.held = cpu_steps is not None
+        self.free = len(self.steps) if free is None else free
+        self.k, self.worst, self.past, self.n = 0, 0.0, 0, 0
+        self.past_lr = 0
+
+    def __enter__(self):
+        import importlib
+
+        self.mods = [importlib.import_module(f"freerl_tpu_torch.algos.{m}")
+                     for m in self.MODULES]
+        self.real = self.mods[0].step
+        for mod in self.mods:
+            mod.step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.step = self.real
+
+    @staticmethod
+    def moments(opt, params):
+        return [opt.state[p][k] for p in params
+                for k in ("exp_avg", "exp_avg_sq")]
+
+    def step(self, opt, params, grads):
+        self.real(opt, params, grads)
+        lr = opt.param_groups[0]["lr"]
+        if not self.held:
+            self.steps.append(
+                ([p.detach().clone() for p in params],
+                 [m.clone() for m in self.moments(opt, params)], lr))
+            return
+        want, moments, _ = self.steps[self.k]
+        self.k += 1
+        with torch.no_grad():
+            for p, w in zip(params, want):
+                d = (p - w.to(p.device)).abs()
+                self.worst = max(self.worst, float(d.max()))
+                self.past += int((d > 1e-5).sum())
+                self.past_lr += int((d > lr).sum())
+                self.n += d.numel()
+            if self.k > self.free:
+                for p, w in zip(params, want):
+                    p.copy_(w)
+                for m, w in zip(self.moments(opt, params), moments):
+                    m.copy_(w)
+
+
+def phase_card_vs_cpu_marl_onpolicy():
+    """The multi-agent on-policy slice on the card against the CPU, at full
+    width (2x128; MAT n_embd 64, one block, one head; rMAPPO hidden 128,
+    GRU 64), from identical params, inputs and draws: one
+    ``sample_action`` (rMAPPO and rIPPO: 16 steps, each device carrying
+    its own hidden states) and one full update of a (T 16, N 64) rollout
+    (15 epochs of four 256-minibatches per agent; rMAPPO's chunks of 8 on
+    the CPU's extras), every Adam step of it held against the CPU's, the
+    first ``FREE_STEPS`` free-running and the rest teacher-forced
+    (``AdamSteps``), and every Adam step the update took seen. The
+    tests' tolerances: actions and log-probs within 1e-5 (discrete actions
+    equal), hidden states within 1e-5; each Adam step's params within 1e-5
+    bar one element in 10,000 (an Adam step on a gradient that is float
+    noise), none past the lr; metrics within 1e-5 relative."""
+    from freerl_tpu_torch.algos import Rollout
+
+    devs = ("cpu", "cuda")
+    t, n = 16, 64
+    rollouts = marl_onpolicy_rollouts(t, n)
+    errs = {}
+    for label, (env_name, algo_name, kw) in MARL_ONPOLICY_VARIANTS.items():
+        env = {dev: marl_env(env_name, dev) for dev in devs}
+        algo = {dev: marl_onpolicy_algo(algo_name, env[dev], dev, **kw)
+                for dev in devs}
+        init = algo["cpu"].init(torch.Generator().manual_seed(0))
+        states = {"cpu": init}
+        states["cuda"] = algo["cuda"].init(
+            torch.Generator(device="cuda").manual_seed(0))
+        for net, ref in zip(state_nets(states["cuda"]), state_nets(init)):
+            net.load_state_dict(ref.state_dict())
+        roll_np = rollouts[label]
+        gen = torch.Generator().manual_seed(1)
+        recurrent = hasattr(algo["cpu"], "init_policy_carry")
+        worst_sample, extras = 0.0, None
+        carries = {dev: algo[dev].init_policy_carry(n) for dev in devs} \
+            if recurrent else {}
+        dp = torch.zeros(n, dtype=torch.bool)
+        ex_steps = []
+        for s in range(t if recurrent else 1):
+            draws = algo["cpu"].draw_action(n, gen)
+            obs = torch.as_tensor(roll_np["obs"][s])
+            out = {}
+            for dev in devs:
+                args = (states[dev], obs.to(dev), draws.to(dev))
+                if recurrent:
+                    args += (carries[dev], dp.to(dev))
+                out[dev] = algo[dev].sample_action(*args)
+            pairs = []
+            if recurrent:
+                for dev in devs:
+                    carries[dev] = out[dev][3]
+                ex_steps.append(out["cpu"][4])
+                dp = torch.as_tensor(roll_np["adv_done"][s])
+                pairs = [(out["cpu"][3].h_actor, out["cuda"][3].h_actor),
+                         (out["cpu"][3].h_critic, out["cuda"][3].h_critic)]
+            for k in range(3):
+                if not out["cpu"][k].is_floating_point():
+                    if not torch.equal(out["cpu"][k], out["cuda"][k].cpu()):
+                        raise AssertionError(f"{label}: sampled actions "
+                                             f"card vs CPU")
+                else:
+                    pairs.append((out["cpu"][k], out["cuda"][k]))
+            worst_sample = max(worst_sample, max(
+                float((a - b.cpu()).abs().max()) for a, b in pairs))
+        if worst_sample > 1e-5:
+            raise AssertionError(f"{label}: sample_action card vs CPU "
+                                 f"{worst_sample}")
+        if recurrent:
+            extras = {k: torch.stack([e[k] for e in ex_steps])
+                      for k in ex_steps[0]}
+        roll = Rollout(**{k: torch.as_tensor(v) for k, v in roll_np.items()})
+        draws = algo["cpu"].draw_update(roll, torch.Generator().manual_seed(2))
+        metrics, steps = {}, None
+        for dev in devs:
+            kwargs = dict(episodes=torch.tensor(40, device=dev))
+            if recurrent:
+                kwargs["extras"] = to_device(extras, dev)
+            before = state_adam_steps(states[dev])
+            with AdamSteps(steps, FREE_STEPS[label]) as rec:
+                _, m = algo[dev].update(states[dev], to_device(roll, dev),
+                                        to_device(draws, dev), **kwargs)
+            steps = rec.steps
+            taken = state_adam_steps(states[dev]) - before
+            if not 0 < taken == len(steps):
+                raise AssertionError(
+                    f"{label} on {dev}: {len(steps)} of the update's {taken} "
+                    f"Adam steps seen")
+            metrics[dev] = torch.stack([m[k].cpu().double()
+                                        for k in sorted(m)])
+        m_err = float(((metrics["cpu"] - metrics["cuda"]).abs()
+                       / metrics["cpu"].abs().clamp(min=1.0)).max())
+        errs[label] = (worst_sample, len(steps), rec.worst, rec.past, rec.n,
+                       m_err)
+        if (rec.k != len(steps) or rec.past > rec.n // 10_000 or rec.past_lr
+                or m_err > 1e-5):
+            raise AssertionError(
+                f"{label} update card vs CPU: {rec.k} of {len(steps)} Adam "
+                f"steps, max abs err {rec.worst}, {rec.past} of {rec.n} "
+                f"past 1e-5, {rec.past_lr} past the lr, metrics {m_err}")
+    log(f"[card-vs-cpu marl onpolicy] sample_action (rMAPPO / rIPPO {t} "
+        f"steps) and one full-width update (T {t}, N {n}), Adam step by "
+        f"step: (sample max abs err, Adam steps, their max abs err, elements "
+        f"past 1e-5, elements, metrics max rel err) {json.dumps(errs)}")
+
+
+def onpolicy_kernels(env, algo, num_envs: int = 128, t: int = 2) -> dict:
+    """Kernels per vector step and per update of the on-policy loop,
+    ``torch.profiler`` over ``t`` vector steps of a fresh carry (after one
+    warm-up iteration) and over the update of their (t, num_envs) rollout:
+    num_envs * t = 256 transitions, one minibatch an epoch at the
+    configs' defaults. The kernels per Adam step are the update's over its
+    Adam steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from freerl_tpu_torch.train import onpolicy
+
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    c = onpolicy.start(env, algo, num_envs, generator, 10 * num_envs)
+
+    def rollout():
+        for s in range(t):
+            onpolicy.vector_step(env, algo, c, generator, 10 * num_envs, s, t)
+
+    rollout()
+    onpolicy.learn(algo, c, generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rollout()
+        torch.cuda.synchronize()
+    step_kernels = len(device_kernels(prof)) / t
+    before = state_adam_steps(c.algo_state)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        onpolicy.learn(algo, c, generator)
+        torch.cuda.synchronize()
+    n_adam = state_adam_steps(c.algo_state) - before
+    update_kernels = len(device_kernels(prof))
+    return dict(vector_step=step_kernels, update=update_kernels,
+                adam_steps=n_adam, adam_step=update_kernels / max(n_adam, 1))
+
+
+# label: (env, algo, config fields, T, iterations, per-agent return ranges[,
+# envs, 1024 if not given])
+MARL_ONPOLICY_PATHS = {
+    "MAPPO spread": ("simple_spread_v3", "MAPPO", dict(), 4, 7,
+                     [SPREAD_RETURNS] * 3),
+    "IPPO adversary": ("simple_adversary_v3", "IPPO", dict(), 4, 2, None),
+    "HAPPO spread": ("simple_spread_v3", "HAPPO", dict(), 4, 2,
+                     [SPREAD_RETURNS] * 3),
+    "MAT spread": ("simple_spread_v3", "MAT", dict(), 4, 2,
+                   [SPREAD_RETURNS] * 3),
+    "MAPPO world comm": ("simple_world_comm_v3", "MAPPO", dict(), 4, 2,
+                         WORLD_COMM_RETURNS),
+    "RMAPPO spread": ("simple_spread_v3", "RMAPPO", dict(), 10, 1,
+                      [SPREAD_RETURNS] * 3, 256),
+}
+
+
+def phase_marl_onpolicy(label: str) -> dict:
+    """``train_onpolicy`` at 1024 envs (rMAPPO at 256: its BPTT update at
+    1024 envs takes about 70 s) through the user's entry points (``make``,
+    the algo class, ``OnPolicyConfig``), the configs' defaults but
+    ``num_envs`` and ``horizon``: each agent's running return, and the
+    (E, A) record, equal the sums of the RAW rewards (MAPPO spread runs 7
+    iterations of T 4, so every env finishes a 25-step episode, and its
+    record must lie in the scenario's ranges), continuous actions reach the
+    env in [0, 1], one update per iteration, no sum-tree launch. Then the
+    kernels per vector step and per Adam step, profiled."""
+    from freerl_tpu_torch.train import OnPolicyConfig, train_onpolicy
+
+    env_name, algo_name, extra, t, iters, ranges, *envs = \
+        MARL_ONPOLICY_PATHS[label]
+    num_envs = envs[0] if envs else 1024
+    env = marl_env(env_name, "cuda")
+    log_ = log_steps(env)
+    algo = marl_onpolicy_algo(algo_name, env, "cuda", probe=True,
+                              num_envs=num_envs, horizon=num_envs * t,
+                              **extra)
+    cfg = OnPolicyConfig(seed=0, num_envs=num_envs, horizon=num_envs * t,
+                         max_episodes=10**9,
+                         max_env_steps=num_envs * t * iters,
+                         log_every_iters=1)
+    carries = []
+    r = run_probed(lambda: train_onpolicy(
+        env, algo, cfg, on_iter=lambda *a: carries.append(a[3])),
+        env, algo, label)
+    info, returns = r["info"], r["returns"]
+    raw = [(x, d) for x, d, _, _ in log_]
+    run = torch.zeros_like(raw[0][0])
+    for x, d in raw:                    # the running returns, raw
+        run = torch.where(d[:, None], 0.0, run + x)
+    if (not np.array_equal(returns, expected_record(raw))
+            or not torch.equal(carries[-1].ep_return, run)):
+        raise AssertionError(f"{label}: the record {returns.shape} or the "
+                             f"running returns are not each agent's sums "
+                             f"of the raw rewards")
+    want_eps = num_envs * (t * iters // 25)
+    if returns.shape != (want_eps, env.n_agents):
+        raise AssertionError(f"{label}: record {returns.shape}")
+    if ranges is not None and len(returns):
+        lo, hi = np.array(ranges).T
+        if not ((returns.min(0) >= lo).all() and (returns.max(0) <= hi).all()):
+            raise AssertionError(f"{label}: returns {returns.min(0)} .. "
+                                 f"{returns.max(0)} outside {ranges}")
+    if (len(algo.metrics) != iters or info["iterations"] != iters
+            or r["launches"]):
+        raise AssertionError(f"{label}: {len(algo.metrics)} updates for "
+                             f"{info}, {r['launches']} sum-tree launches")
+    if env.dim_info.is_continue:
+        lo_a = float(torch.cat([x for _, _, x, _ in log_]).min())
+        hi_a = float(torch.cat([x for _, _, _, x in log_]).max())
+        if not (lo_a >= 0.0 and hi_a <= 1.0):
+            raise AssertionError(f"{label}: env actions in [{lo_a}, {hi_a}]")
+    log_.clear()
+    r["kernels"] = onpolicy_kernels(env, marl_onpolicy_algo(
+        algo_name, env, "cuda", **extra))
+    # device time between two vector steps' reward hooks; the median
+    # leaves out the gaps that hold an update
+    ev = algo.step_events
+    r["vector_step_ms"] = float(np.median([
+        ev[i - 1].elapsed_time(ev[i]) for i in range(1, len(ev))]))
+    log(f"[marl onpolicy {label}] {info['env_steps']} env steps, "
+        f"{info['iterations']} updates of {sum(algo.steps)} Adam steps, "
+        f"{info['episodes']} episodes in {info['elapsed_s']:.2f} s: "
+        f"{info['env_steps_per_s']:.0f} env-steps/s, update "
+        f"{r['learn_ms']:.1f} ms, vector step {r['vector_step_ms']:.3f} ms, "
+        f"kernels {json.dumps(r['kernels'])}, peak memory "
+        f"{r['peak_mib']:.1f} MiB, finite {r['checked']}, record == RAW "
+        f"rewards' ({returns.shape}), sumtree launches {r['launches']}")
+    return r
+
+
 # The learning checks, one recipe each: the env, the algo, its config's and
 # the loop config's fields (the off-policy loop unless ``driver`` says
 # "onpolicy" or "marl"), the episodes read at each end, and the threshold
@@ -1724,6 +2159,20 @@ LEARNING_CHECKS = {
         algo_cfg=dict(twin=True, num_envs=8, actor_lr=1e-3, critic_lr=1e-3),
         loop=dict(num_envs=8, max_episodes=300, chunk_size=128),
         read=(10, 50), threshold=-20.8),
+    # MAPPO (stacked) on simple_spread_v3, the JAX package's recipe
+    # (tests/test_marl_onpolicy.py:120-129: 8 envs, horizon 512, K_epochs
+    # 5, minibatch 256, adv_norm, 400 episodes through train_onpolicy),
+    # which expects the last 40 episodes 0.5 above the first 40; read as
+    # the mean over agents and episodes. The port on the CPU, seeds 0-19,
+    # read -23.50 to -19.34 as trained and -27.31 to -22.22 with every lr at
+    # 0 (--frozen): the spreads overlap, so the threshold sits just above
+    # every frozen seed, where 18 of the 20 trained ones clear it
+    "mappo_spread": dict(
+        env="simple_spread_v3", algo="MAPPO", driver="onpolicy",
+        algo_cfg=dict(num_envs=8, horizon=512, K_epochs=5,
+                      minibatch_size=256, adv_norm=True),
+        loop=dict(num_envs=8, max_episodes=400, horizon=512),
+        read=(40, 40), threshold=-22.2),
 }
 
 
@@ -1743,7 +2192,9 @@ def recipe_run(rec: dict, seed: int, device: str, algo_cls=None):
                                  device=device)
         cfg = MARLConfig(seed=seed, **rec["loop"])
         return env, algo, lambda: train_marl(env, algo, cfg)
-    algo = (algo_cls or cls)(env.dim_info, cfg_cls(**rec["algo_cfg"]),
+    # the multi-agent on-policy algos take the env too
+    algo = (algo_cls or cls)(env if getattr(env, "n_agents", 1) > 1
+                             else env.dim_info, cfg_cls(**rec["algo_cfg"]),
                              device=device)
     if rec.get("driver") == "onpolicy":
         cfg = OnPolicyConfig(seed=seed, **rec["loop"])
@@ -1831,6 +2282,10 @@ def main() -> int:
     kernel["launches_marl"] = sum(
         timed(f"marl {label}", phase_marl, label)["launches"]
         for label in MARL_PATHS)
+    timed("card-vs-cpu marl onpolicy", phase_card_vs_cpu_marl_onpolicy)
+    kernel["launches_onpolicy"] += sum(
+        timed(f"marl onpolicy {label}", phase_marl_onpolicy, label)[
+            "launches"] for label in MARL_ONPOLICY_PATHS)
     for name in LEARNING_CHECKS:
         launches = timed(f"learning {name}", phase_learning, name)
         driver = LEARNING_CHECKS[name].get("driver")

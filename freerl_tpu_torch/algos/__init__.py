@@ -5,29 +5,41 @@ from freerl_tpu_torch.algos.ddpg import (DDPG, DDPGConfig, DDPGState, QCritic,
                                          SoftmaxActor, TanhActor,
                                          gumbel_softmax)
 from freerl_tpu_torch.algos.dqn import DQN, DQNConfig, DQNState, QNetwork
+from freerl_tpu_torch.algos.happo import (HAPPO, HAPPOConfig, HAPPODraws,
+                                          HAPPOState)
 from freerl_tpu_torch.algos.maac import (MAAC, MAACConfig, MAACCritics,
                                          MAACState, SharedAttention,
                                          SoftmaxActorNet)
 from freerl_tpu_torch.algos.maddpg import (MADDPG, MATD3, ATTCritic,
                                            MADDPGConfig, MADDPGState)
+from freerl_tpu_torch.algos.mappo import (IPPO, MAPPO, AgentActor,
+                                          AgentVCritic, MAPPOConfig,
+                                          MAPPOState, SharedAttnVCritics)
 from freerl_tpu_torch.algos.masac import MASAC, MASACConfig, MASACState
+from freerl_tpu_torch.algos.mat import MAT, MATConfig, MATState
 from freerl_tpu_torch.algos.ppo import (PPO, BetaPolicy, CategoricalPolicy,
                                         GaussianPolicy, PPOConfig, PPOState,
                                         Rollout, VCritic)
 from freerl_tpu_torch.algos.reinforce import (REINFORCE, REINFORCEConfig,
                                               REINFORCEState)
+from freerl_tpu_torch.algos.rmappo import (RIPPO, RMAPPO, HiddenCarry,
+                                           RMAPPOConfig, RMAPPOState)
 from freerl_tpu_torch.algos.sac import (SAC, GaussianActor, SACConfig,
                                         SACState, SoftmaxPolicy, TwinQTable)
 from freerl_tpu_torch.algos.td3 import TD3, TD3Config, TD3State, TwinQCritic
 
-__all__ = ["ATTCritic", "BetaPolicy", "CategoricalPolicy", "DDPG",
-           "DDPGConfig", "DDPGState", "DQN", "DQNConfig", "DQNState",
-           "ExploreCtx", "ExploreDraws", "GaussianActor", "GaussianPolicy",
-           "LearnDraws", "MAAC", "MAACConfig", "MAACCritics", "MAACState",
-           "MADDPG", "MADDPGConfig", "MADDPGState", "MASAC", "MASACConfig",
-           "MASACState", "MATD3", "MultiAgentAlgo", "OffPolicyAlgo", "PPO",
-           "PPOConfig", "PPOState", "QCritic", "QNetwork", "REINFORCE",
-           "REINFORCEConfig", "REINFORCEState", "Rollout", "SAC", "SACConfig",
-           "SACState", "SharedAttention", "SoftmaxActor", "SoftmaxActorNet",
+__all__ = ["ATTCritic", "AgentActor", "AgentVCritic", "BetaPolicy",
+           "CategoricalPolicy", "DDPG", "DDPGConfig", "DDPGState", "DQN",
+           "DQNConfig", "DQNState", "ExploreCtx", "ExploreDraws",
+           "GaussianActor", "GaussianPolicy", "HAPPO", "HAPPOConfig",
+           "HAPPODraws", "HAPPOState", "HiddenCarry", "IPPO", "LearnDraws",
+           "MAAC", "MAACConfig", "MAACCritics", "MAACState", "MADDPG",
+           "MADDPGConfig", "MADDPGState", "MAPPO", "MAPPOConfig", "MAPPOState",
+           "MASAC", "MASACConfig", "MASACState", "MAT", "MATConfig", "MATD3",
+           "MATState", "MultiAgentAlgo", "OffPolicyAlgo", "PPO", "PPOConfig",
+           "PPOState", "QCritic", "QNetwork", "REINFORCE", "REINFORCEConfig",
+           "REINFORCEState", "RIPPO", "RMAPPO", "RMAPPOConfig", "RMAPPOState",
+           "Rollout", "SAC", "SACConfig", "SACState", "SharedAttention",
+           "SharedAttnVCritics", "SoftmaxActor", "SoftmaxActorNet",
            "SoftmaxPolicy", "TD3", "TD3Config", "TD3State", "TanhActor",
            "TwinQCritic", "TwinQTable", "VCritic", "common", "gumbel_softmax"]

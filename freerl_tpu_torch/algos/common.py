@@ -1,7 +1,5 @@
 """Shared algorithmic building blocks (counterpart:
-``freerl_tpu/algos/common.py``). The rest of that module (the surrogate
-and value-clip losses of the multi-agent family) comes with the slices
-that use it."""
+``freerl_tpu/algos/common.py``)."""
 from __future__ import annotations
 
 from typing import Iterable, Sequence
@@ -31,6 +29,36 @@ def td_target(reward: torch.Tensor, gamma, next_value: torch.Tensor,
               done: torch.Tensor) -> torch.Tensor:
     """r + gamma * V' * (1 - done); gamma may be per-sample (n-step)."""
     return reward + gamma * next_value * (1.0 - done.to(torch.float32))
+
+
+def huber(x: torch.Tensor, delta: float = 10.0) -> torch.Tensor:
+    """The reference's huber loss, delta 10 by default."""
+    ax = torch.abs(x)
+    return torch.where(ax <= delta, 0.5 * x ** 2, delta * (ax - 0.5 * delta))
+
+
+def clipped_surrogate(ratio: torch.Tensor, adv: torch.Tensor,
+                      clip_eps: float) -> torch.Tensor:
+    """PPO's clipped surrogate, as a loss: ``-min(r A, clip(r) A)``."""
+    return -torch.minimum(
+        ratio * adv, torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv)
+
+
+def value_clip_loss(values: torch.Tensor, old_values: torch.Tensor,
+                    returns: torch.Tensor, clip_eps: float,
+                    use_huber: bool = False,
+                    huber_delta: float = 10.0) -> torch.Tensor:
+    """The ValueClip loss: the larger of the clipped and the unclipped
+    value errors, elementwise (half squares, or huber)."""
+    clipped = old_values + torch.clamp(values - old_values, -clip_eps,
+                                       clip_eps)
+    if use_huber:
+        e1 = huber(returns - values, huber_delta)
+        e2 = huber(returns - clipped, huber_delta)
+    else:
+        e1 = 0.5 * (returns - values) ** 2
+        e2 = 0.5 * (returns - clipped) ** 2
+    return torch.maximum(e1, e2)
 
 
 def gae(rewards: torch.Tensor, values: torch.Tensor,

@@ -45,11 +45,7 @@ from freerl_tpu_torch.algos.common import clip_grads_by_norm, gae
 from freerl_tpu_torch.core.normalization import RewardScaling, RunningMeanStd
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.nets import distributions as D
-from freerl_tpu_torch.nets.mlp import MLP, Dense, Trunk
-
-
-def _scheme(orthogonal: bool) -> str:
-    return "orthogonal" if orthogonal else "torch"
+from freerl_tpu_torch.nets.mlp import MLP, Dense, Trunk, init_scheme
 
 
 class GaussianPolicy(MLP):
@@ -60,7 +56,7 @@ class GaussianPolicy(MLP):
                  orthogonal: bool = False, max_action: float = 1.0,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__(obs_dim, action_dim, hidden, activation, generator,
-                         device, _scheme(orthogonal), out_gain=0.01)
+                         device, init_scheme(orthogonal), out_gain=0.01)
         self.max_action = max_action
         self.log_std = nn.Parameter(torch.zeros(action_dim, device=device))
 
@@ -77,7 +73,7 @@ class BetaPolicy(Trunk):
                  hidden: Sequence[int] = (128, 128), activation: str = "relu",
                  orthogonal: bool = False,
                  generator: torch.Generator | None = None, device="cuda"):
-        scheme = _scheme(orthogonal)
+        scheme = init_scheme(orthogonal)
         super().__init__(obs_dim, hidden, activation, generator, device,
                          scheme)
         self.alpha_head = Dense(self.trunk_dim, action_dim, generator, device,
@@ -98,7 +94,7 @@ class CategoricalPolicy(MLP):
                  orthogonal: bool = False,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__(obs_dim, action_dim, hidden, activation, generator,
-                         device, _scheme(orthogonal), out_gain=0.01)
+                         device, init_scheme(orthogonal), out_gain=0.01)
 
 
 class VCritic(MLP):
@@ -108,7 +104,7 @@ class VCritic(MLP):
                  activation: str = "relu", orthogonal: bool = False,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__(obs_dim, 1, hidden, activation, generator, device,
-                         _scheme(orthogonal), out_gain=1.0)
+                         init_scheme(orthogonal), out_gain=1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x).squeeze(-1)

@@ -27,6 +27,14 @@ bias, ``attn/{value, fc_out}``, and per agent the framework ``Dense``
 layers ``enc_s_i``, ``enc_sa_i``, ``fc1_i``, ``fc2_i``). A flax name
 ``stem_i`` is the port's ``stem.i`` (an ``nn.ModuleList``).
 
+The multi-agent on-policy family (``mappo_state_from_flax``,
+``mat_state_from_flax``, ``rmappo_state_from_flax``) is mapped name by
+name: a flax ``LayerNorm`` ``{scale, bias}`` is the port's
+``nets/norm.py`` ``LayerNorm``; a framework ``Dense`` is one level
+deeper than a plain ``nn.Dense``; the GRU's six denses keep flax's names
+(``gru.dense.ir``, ...); MAT's blocks are listed in ``_MAT_NAMES``. The
+stacked MAPPO nets take each agent's tree, stacked on a leading axis.
+
 Kernels are ``(in, out)`` and torch weights ``(out, in)``, so they are
 transposed. Adam moments start at zero on both sides and need no carrying
 over.
@@ -223,3 +231,158 @@ def marl_state_from_flax(state, flax_state) -> None:
                 la.fill_(float(v))
     if loaded == 0:
         raise ValueError(f"not a multi-agent learner state: {type(state)}")
+
+
+# ---------------------------------------------------------------------------
+# The multi-agent on-policy family
+# ---------------------------------------------------------------------------
+def _tree(tree: dict, rename, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A flax param tree as state_dict entries: ``rename(flax_name)`` gives
+    each sub-tree's port name ("" keeps the prefix: the inner ``Dense_0``
+    of a framework ``Dense``) and the rename of its own entries. Leaves:
+    ``kernel`` is the transposed ``weight``; ``bias``, ``scale`` and
+    ``log_std`` keep their names."""
+    state = {}
+    for key, value in tree.items():
+        if not isinstance(value, dict):
+            name = "weight" if key == "kernel" else key
+            state[prefix + name] = _t(value, transpose=key == "kernel")
+            continue
+        name, sub = rename(key)
+        state.update(_tree(value, sub, f"{prefix}{name}." if name else prefix))
+    return state
+
+
+def _leaves(key):
+    """A dense or norm layer: its leaves only (a framework ``Dense`` holds
+    one ``Dense_0``, which keeps the prefix)."""
+    if key == "Dense_0":
+        return "", _leaves
+    raise ValueError(f"unexpected sub-tree {key!r}")
+
+
+def _table(names: dict):
+    """A rename from a table of flax names: ``{flax: port}`` for layers,
+    ``{flax: (port, table)}`` for sub-modules; a flax name ``Block_3``
+    matches the table's ``Block_*`` and becomes ``port.3``."""
+    def rename(key):
+        entry = names.get(key)
+        if entry is None:
+            stem, _, k = key.rpartition("_")
+            entry = names.get(stem + "_*")
+            if entry is None:
+                raise ValueError(f"unexpected sub-tree {key!r}")
+            port, sub = entry
+            return f"{port}.{k}", _table(sub)
+        if isinstance(entry, tuple):
+            return entry[0], _table(entry[1])
+        return entry, _leaves
+    return rename
+
+
+def _trunk_names(n_hidden: int, norms: list, first: str, last: str = ""):
+    """The rename table of an MLP trunk: ``Dense_j`` is ``layers.j``;
+    LayerNorms in ``norms`` order are ``first`` (if given), ``norms.j``,
+    then ``last`` (if given)."""
+    names = {f"Dense_{j}": f"layers.{j}" for j in range(n_hidden)}
+    ports = ([first] if first else []) + [f"norms.{j}" for j in
+                                          range(len(norms) - bool(first)
+                                                - bool(last))]
+    ports += [last] if last else []
+    names.update({f"LayerNorm_{k}": p for k, p in enumerate(ports)})
+    return names
+
+
+def _agent_net(params: dict, cfg, recurrent: bool = False) -> dict:
+    """A flax ``AgentActor`` / ``AgentVCritic`` (MAPPO) or
+    ``RecurrentActor`` / ``RecurrentVCritic`` (rMAPPO) as a state_dict."""
+    trunk_key = "RecurrentTrunk_0" if recurrent else "MLPTrunk_0"
+    trunk = params[trunk_key]
+    n_hidden = sum(1 for k in trunk if k.startswith("Dense_"))
+    norms = [k for k in trunk if k.startswith("LayerNorm_")]
+    if recurrent:
+        names = _trunk_names(n_hidden, norms, "",
+                             "out_norm" if cfg.layer_norm else "")
+        names["GRUCell_0"] = ("gru", {k: f"dense.{k}" for k in
+                                      ("ir", "hr", "iz", "hz", "in", "hn")})
+    else:
+        names = _trunk_names(n_hidden, norms,
+                             "feature_norm" if cfg.feature_norm else "")
+    return _tree(params, _table({trunk_key: ("trunk", names),
+                                 "Dense_0": "head"}))
+
+
+def _attn_critics(params: dict) -> dict:
+    """A flax ``SharedAttnVCritics`` tree as a state_dict."""
+    wrapped = {"Dense_0": ""}
+    return _tree(params, _table({
+        "attn": ("attn", {k: k for k in ("query", "key", "value", "fc_out")}),
+        "enc_*": ("enc", wrapped), "fc1_*": ("fc1", wrapped),
+        "v_*": ("v", wrapped)}))
+
+
+def _load(net: torch.nn.Module, states: list) -> None:
+    """Load one state_dict, or a stacked net from one per agent."""
+    if len(states) == 1:
+        net.load_state_dict(states[0])
+    else:
+        net.load_state_dict({k: torch.stack([s[k] for s in states])
+                             for k in states[0]})
+
+
+def mappo_state_from_flax(algo, state, flax_state) -> None:
+    """Load a JAX MAPPO / IPPO / HAPPO state (its param trees as numpy
+    arrays) into the port's state of ``algo``, in place: per-agent or
+    stacked actors and critics, or the attention critics."""
+    actors = [_agent_net(p, algo.cfg) for p in flax_state.actor_params]
+    if algo.cfg.attention:
+        critics = [_attn_critics(flax_state.critic_params[0])]
+    else:
+        critics = [_agent_net(p, algo.cfg) for p in flax_state.critic_params]
+    if isinstance(state.actors, list):
+        for net, sd in zip(state.actors, actors):
+            _load(net, [sd])
+        for net, sd in zip(state.critics if isinstance(state.critics, list)
+                           else [state.critics], critics):
+            _load(net, [sd])
+    else:
+        _load(state.actors, actors)
+        _load(state.critics, critics)
+
+
+def rmappo_state_from_flax(algo, state, flax_state) -> None:
+    """Load a JAX rMAPPO / rIPPO state into the port's, in place."""
+    for nets, trees in ((state.actors, flax_state.actor_params),
+                        (state.critics, flax_state.critic_params)):
+        for net, tree in zip(nets, trees):
+            net.load_state_dict(_agent_net(tree, algo.cfg, recurrent=True))
+
+
+_MAT_ATTN = {k: k for k in ("key", "query", "value", "proj")}
+_MAT_NAMES = {
+    "enc": {
+        "LayerNorm_0": "obs_norm", "Dense_0": "embed",
+        "LayerNorm_1": "embed_norm", "Dense_1": "v_hidden",
+        "LayerNorm_2": "v_norm", "Dense_2": "v_out",
+        "EncodeBlock_*": ("blocks", {
+            "MATAttention_0": ("attn", _MAT_ATTN), "LayerNorm_0": "norm1",
+            "Dense_0": "mlp1", "Dense_1": "mlp2", "LayerNorm_1": "norm2"}),
+    },
+    "dec": {
+        "Dense_0": "embed", "LayerNorm_0": "embed_norm",
+        "Dense_1": "head_hidden", "LayerNorm_1": "head_norm",
+        "Dense_2": "head_out",
+        "DecodeBlock_*": ("blocks", {
+            "MATAttention_0": ("attn1", _MAT_ATTN), "LayerNorm_0": "norm1",
+            "MATAttention_1": ("attn2", _MAT_ATTN), "LayerNorm_1": "norm2",
+            "Dense_0": "mlp1", "Dense_1": "mlp2", "LayerNorm_2": "norm3"}),
+    },
+}
+
+
+def mat_state_from_flax(state, flax_state) -> None:
+    """Load a JAX MAT state's encoder and decoder into the port's."""
+    state.encoder.load_state_dict(_tree(flax_state.enc_params,
+                                        _table(_MAT_NAMES["enc"])))
+    state.decoder.load_state_dict(_tree(flax_state.dec_params,
+                                        _table(_MAT_NAMES["dec"])))

@@ -1,6 +1,10 @@
-from freerl_tpu_torch.nets.mlp import MLP, CategoricalQNet, Dense, DuelingQNet
+from freerl_tpu_torch.nets.mlp import (MLP, CategoricalQNet, Dense,
+                                       DuelingQNet, StackedDense)
 from freerl_tpu_torch.nets.noisy import (NoisyCategoricalQNet, NoisyDense,
                                          NoisyDuelingQNet, NoisyMLP)
+from freerl_tpu_torch.nets.norm import LayerNorm
+from freerl_tpu_torch.nets.rnn import (GRUCell, RecurrentActor,
+                                       RecurrentTrunk, RecurrentVCritic)
 
 __all__ = [
     "MLP",
@@ -11,4 +15,10 @@ __all__ = [
     "NoisyMLP",
     "NoisyDuelingQNet",
     "NoisyCategoricalQNet",
+    "StackedDense",
+    "LayerNorm",
+    "GRUCell",
+    "RecurrentTrunk",
+    "RecurrentActor",
+    "RecurrentVCritic",
 ]

@@ -16,7 +16,10 @@ explicit ``torch.Generator``:
   the JAX package builds from plain ``nn.Dense``).
 
 ``bias=False`` makes a layer with no bias parameter at all (flax's
-``use_bias=False``).
+``use_bias=False``); the ``'flax'`` and ``'orthogonal'`` schemes take it.
+
+:class:`StackedDense` holds ``n`` such layers, one per agent, as one
+``(n, out, in)`` weight, and applies them in one batched matmul.
 
 Layers are created, and so initialised, in the JAX modules' order. Weights
 are stored torch-style, ``(out, in)``; flax stores ``(in, out)`` (see
@@ -49,6 +52,11 @@ SCHEMES = ("torch", "fanin", "final", "orthogonal", "flax")
 _TRUNC_STD = 0.87962566103423978
 
 
+def init_scheme(orthogonal: bool) -> str:
+    """The scheme of the on-policy nets' ``orthogonal_init`` flag."""
+    return "orthogonal" if orthogonal else "torch"
+
+
 class Dense(nn.Module):
     """Linear layer with an init scheme (see the module docstring)."""
 
@@ -71,12 +79,13 @@ class Dense(nn.Module):
                 if bias:
                     nn.init.zeros_(self.bias)
                 return
-            if not bias:
-                raise ValueError(f"scheme {scheme!r} always has a bias")
             if scheme == "orthogonal":
                 nn.init.orthogonal_(self.weight, gain, generator=generator)
-                nn.init.zeros_(self.bias)
+                if bias:
+                    nn.init.zeros_(self.bias)
                 return
+            if not bias:
+                raise ValueError(f"scheme {scheme!r} always has a bias")
             bound = (final_scale if scheme == "final"
                      else 1.0 / math.sqrt(in_features))
             nn.init.uniform_(self.weight, -bound, bound, generator=generator)
@@ -84,6 +93,30 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+class StackedDense(nn.Module):
+    """``n`` independent ``Dense`` layers, each initialised as ``Dense``
+    is, stored as one ``(n, out, in)`` weight and ``(n, out)`` bias. The
+    input is ``(n, B, in)``, one batch per layer, or ``(B, in)``, one batch
+    that every layer reads; the output is ``(n, B, out)``."""
+
+    def __init__(self, n: int, in_features: int, features: int,
+                 generator: torch.Generator | None = None, device="cuda",
+                 scheme: str = "torch", gain: float = math.sqrt(2.0)):
+        super().__init__()
+        layers = [Dense(in_features, features, generator, device, scheme,
+                        gain=gain) for _ in range(n)]
+        self.weight = nn.Parameter(torch.stack([layer.weight.data
+                                                for layer in layers]))
+        self.bias = nn.Parameter(torch.stack([layer.bias.data
+                                              for layer in layers]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x.expand(self.weight.shape[0], *x.shape)
+        return torch.baddbmm(self.bias.unsqueeze(1), x,
+                             self.weight.transpose(1, 2))
 
 
 class Trunk(nn.Module):

@@ -11,6 +11,15 @@ Conventions kept from the JAX package: episode returns are recorded on RAW
 env rewards while the stored rewards pass through ``process_reward``
 (reward_norm / reward_scaling), and ``process_obs`` (obs normalization)
 updates during collection.
+
+Multi-agent envs (MAPPO, IPPO, HAPPO, MAT, rMAPPO) keep the agent axis:
+rewards are (N, A) and so are the running returns, and the record is
+(E, A). Where the env's box is [0, 1] (``action_space_01``, the MPE
+scenarios) continuous actions are mapped there from the policy's
+[-1, 1]. A recurrent algo (one with ``init_policy_carry``, rMAPPO) gets
+its hidden-state carry and the previous step's episode ends at every
+``sample_action``, and its per-step ``extras``, stacked into (T, ...)
+tensors allocated once, at ``update(..., extras=)``.
 """
 from __future__ import annotations
 
@@ -49,14 +58,19 @@ class OnPolicyCarry:
     algo_state: object
     env_state: object
     obs: torch.Tensor
-    ep_return: torch.Tensor        # (num_envs,)
+    ep_return: torch.Tensor        # (num_envs,), or (num_envs, A)
     ep_counter: torch.Tensor       # scalar int64, completed episodes
-    episode_returns: torch.Tensor  # (record_cap + 1,); the last slot drops
+    episode_returns: torch.Tensor  # (record_cap + 1[, A]); the last slot drops
     rollout: Optional[Rollout] = None   # (T, N, ...), allocated once
     total_steps: int = 0           # vector steps so far (host)
+    # recurrent algos: the hidden-state carry, the previous step's episode
+    # ends, and the iteration's stacked extras (T, ...)
+    policy_carry: object = None
+    done_prev: Optional[torch.Tensor] = None
+    extras: Optional[dict] = None
 
 
-def _check_supported(env: Env, algo, cfg: OnPolicyConfig, mesh) -> None:
+def _check_supported(cfg: OnPolicyConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training (mesh) comes with the distributed slice "
@@ -65,27 +79,24 @@ def _check_supported(env: Env, algo, cfg: OnPolicyConfig, mesh) -> None:
         raise NotImplementedError(
             "checkpointing waits for the port of train/runio.py "
             "(ROADMAP.md queue A, slice 7)")
-    if getattr(env, "n_agents", 1) > 1 or getattr(env, "action_space_01",
-                                                   False):
-        raise NotImplementedError(
-            "multi-agent envs come with the multi-agent slice (ROADMAP.md "
-            "queue A, slice 5, item 12)")
-    if hasattr(algo, "init_policy_carry"):
-        raise NotImplementedError(
-            "recurrent policies come with the multi-agent slice (ROADMAP.md "
-            "queue A, slice 5, item 15)")
 
 
-def _write(rollout: Optional[Rollout], t: int, T: int, step: dict) -> Rollout:
-    """Write one vector step into row ``t`` of the rollout, allocating its
-    ``(T, N, ...)`` tensors on the first write."""
-    if rollout is None:
-        rollout = Rollout(**{k: torch.empty((T,) + tuple(v.shape),
-                                            dtype=v.dtype, device=v.device)
-                             for k, v in step.items()})
+def _write(store, t: int, T: int, step: dict, make=Rollout):
+    """Write one vector step into row ``t`` of ``store`` (a Rollout, or
+    with ``make=dict`` a dict), allocating its ``(T, ...)`` tensors on the
+    first write."""
+    if store is None:
+        store = make(**{k: torch.empty((T,) + tuple(v.shape),
+                                       dtype=v.dtype, device=v.device)
+                        for k, v in step.items()})
+    rows = store if isinstance(store, dict) else vars(store)
     for k, v in step.items():
-        getattr(rollout, k)[t] = v
-    return rollout
+        rows[k][t] = v
+    return store
+
+
+def _recurrent(algo) -> bool:
+    return hasattr(algo, "init_policy_carry")
 
 
 def vector_step(env: Env, algo, c: OnPolicyCarry,
@@ -95,8 +106,15 @@ def vector_step(env: Env, algo, c: OnPolicyCarry,
     place: sample, auto-resetting env step, reward and obs processing,
     the episode record on RAW rewards, row ``t`` of ``c.rollout``."""
     num_envs = c.obs.shape[0]
-    env_a, stored_a, logp = algo.sample_action(
-        c.algo_state, c.obs, algo.draw_action(num_envs, generator))
+    draws = algo.draw_action(num_envs, generator)
+    if _recurrent(algo):
+        env_a, stored_a, logp, c.policy_carry, extras = algo.sample_action(
+            c.algo_state, c.obs, draws, c.policy_carry, c.done_prev)
+        c.extras = _write(c.extras, t, T, extras, dict)
+    else:
+        env_a, stored_a, logp = algo.sample_action(c.algo_state, c.obs, draws)
+    if getattr(env, "action_space_01", False) and env.dim_info.is_continue:
+        env_a = (env_a + 1.0) / 2.0       # the MPE box is [0, 1]
     out = vec_step_auto_reset(env, c.env_state, env_a, generator, num_envs)
     c.algo_state, reward = algo.process_reward(c.algo_state, out.reward,
                                                out.episode_done)
@@ -107,31 +125,43 @@ def vector_step(env: Env, algo, c: OnPolicyCarry,
         obs=c.obs, action=stored_a, log_pi=logp, reward=reward,
         next_obs=next_obs, done=out.terminated, adv_done=out.episode_done))
     c.env_state, c.obs = out.state, carry_obs
+    if _recurrent(algo):
+        c.done_prev = out.episode_done
     c.total_steps += 1
 
 
 def learn(algo, c: OnPolicyCarry, generator: torch.Generator) -> dict:
-    """The iteration's update on ``c.rollout``, with its draws from
-    ``generator``; returns the update's metrics."""
+    """The iteration's update on ``c.rollout`` (and a recurrent algo's
+    ``c.extras``), with its draws from ``generator``; returns the update's
+    metrics."""
+    kw = {"extras": c.extras} if _recurrent(algo) else {}
     c.algo_state, metrics = algo.update(
         c.algo_state, c.rollout, algo.draw_update(c.rollout, generator),
-        episodes=c.ep_counter)
+        episodes=c.ep_counter, **kw)
     return metrics
 
 
 def start(env: Env, algo, num_envs: int, generator: torch.Generator,
           record_cap: int) -> OnPolicyCarry:
-    """The algo's initial state and the reset batch, in a fresh carry."""
+    """The algo's initial state and the reset batch, in a fresh carry;
+    a multi-agent env's returns and record keep the agent axis."""
     device = env.device
+    n_agents = getattr(env, "n_agents", 1)
+    agents = (n_agents,) if n_agents > 1 else ()
     algo_state = algo.init(generator)
     env_state, obs = vec_reset(env, generator, num_envs)
     algo_state, _, obs = algo.process_obs(algo_state, obs, obs)
-    return OnPolicyCarry(
+    c = OnPolicyCarry(
         algo_state=algo_state, env_state=env_state, obs=obs,
-        ep_return=torch.zeros(num_envs, device=device),
+        ep_return=torch.zeros((num_envs,) + agents, device=device),
         ep_counter=torch.zeros((), dtype=torch.int64, device=device),
-        episode_returns=torch.zeros(record_cap + 1, device=device),
+        episode_returns=torch.zeros((record_cap + 1,) + agents,
+                                    device=device),
     )
+    if _recurrent(algo):
+        c.policy_carry = algo.init_policy_carry(num_envs)
+        c.done_prev = torch.zeros(num_envs, dtype=torch.bool, device=device)
+    return c
 
 
 def train_onpolicy(env: Env, algo, cfg: OnPolicyConfig,
@@ -139,12 +169,16 @@ def train_onpolicy(env: Env, algo, cfg: OnPolicyConfig,
     """``algo`` must expose ``init(generator)``, ``draw_action(b,
     generator)``, ``sample_action(state, obs, draws)``, ``process_obs``,
     ``process_reward``, ``draw_update(rollout, generator)`` and
-    ``update(state, rollout, draws, episodes)`` (see ``algos/ppo.py``);
-    ``env`` and ``algo`` must share a device. ``on_iter(it, episodes,
-    env_steps, carry, metrics)`` fires once per ``log_every_iters``
-    iterations. Returns ``(algo_state, episode_returns ndarray, info)``.
+    ``update(state, rollout, draws, episodes)`` (see ``algos/ppo.py``); a
+    recurrent one also ``init_policy_carry(num_envs)``, and its
+    ``sample_action`` and ``update`` take the carry and the extras (see
+    ``algos/rmappo.py``). ``env`` and ``algo`` must share a device.
+    ``on_iter(it, episodes, env_steps, carry, metrics)`` fires once per
+    ``log_every_iters`` iterations. Returns ``(algo_state,
+    episode_returns ndarray, info)``; the returns are (E,), or (E, A) for
+    a multi-agent env.
     """
-    _check_supported(env, algo, cfg, mesh)
+    _check_supported(cfg, mesh)
     num_envs = cfg.num_envs
     T = max(cfg.horizon // num_envs, 1)
     K = max(cfg.iters_per_dispatch, 1)

@@ -1,7 +1,8 @@
 """The spread over seeds of ``chip_smoke.py``'s learning checks.
 
     python3 scripts/learning_seeds.py
-        [--recipe cartpole|sac_pendulum|ppo_cartpole|matd3_spread]
+        [--recipe cartpole|sac_pendulum|ppo_cartpole|matd3_spread|
+                  mappo_spread]
         [--device cpu] [--seeds 0-19] [--frozen]
 
 Runs one recipe of ``chip_smoke.LEARNING_CHECKS``, the very one the check
@@ -16,7 +17,11 @@ and the last 20) or ``ppo_cartpole`` (the JAX package's recipe of
 and the last 30) or ``matd3_spread`` (the JAX package's recipe of
 ``tests/test_marl.py``: MATD3 on simple_spread_v3, 8 envs, actor and
 critic lr 1e-3, 300 episodes through ``train_marl``, read over the first
-10 and the last 50, averaged over agents). One JSON line per seed, then
+10 and the last 50, averaged over agents) or ``mappo_spread`` (the JAX
+package's recipe of ``tests/test_marl_onpolicy.py``: MAPPO with
+adv_norm on simple_spread_v3, 8 envs, horizon 512, K_epochs 5, minibatch
+256, 400 episodes through ``train_onpolicy``, read over the first and the
+last 40, averaged over agents). One JSON line per seed, then
 one with the smallest and largest "last" mean. A check's threshold is set
 below that spread. ``--frozen`` runs the recipe with every learning rate
 at 0: the spread of a policy that does not learn, which a threshold must

@@ -3,7 +3,8 @@
     python3 scripts/torch_profile.py
         [--config per|uniform|rainbow|ddpg|td3|sac|ppo_bipedal|ppo_cartpole|
                   reinforce|maddpg_spread|matd3_spread|masac_spread|
-                  maac_spread|maddpg_worldcomm]
+                  maac_spread|maddpg_worldcomm|mappo_spread|happo_spread|
+                  mat_spread|rmappo_spread]
         [--num-envs 1024] [--steps 32]
 
 Builds the actor-learner loop of ``train_offpolicy`` at full width (buffer
@@ -17,10 +18,13 @@ discrete form, MADDPG on simple_world_comm_v3. Or the on-policy loop of
 ``train_onpolicy``: PPO with its defaults (2x128 nets, 10 epochs of
 minibatch 64) on BipedalWalker-v3 (``ppo_bipedal``) or CartPole-v1
 (``ppo_cartpole``), T 16, or REINFORCE on CartPole-v1 (``reinforce``), T
-64; ``--steps`` is then ignored, and an iteration (rollout of T vector steps, then one
-update) is broken into the rollout's phases (sample, env step, process:
-reward and obs hooks, episode record, rollout write) and the update,
-with the kernels per vector step and per Adam step. The off-policy loop
+64; or the multi-agent on-policy family on simple_spread_v3 at the
+configs' defaults: MAPPO (stacked), HAPPO, MAT (continuous), T 4, and
+rMAPPO, T 10 (one BPTT chunk); ``--steps`` is then ignored, and an
+iteration (rollout of T vector steps, then one update) is broken into
+the rollout's phases (sample, env step, process: reward and obs hooks,
+episode record, rollout write) and the update, with the kernels per
+vector step and per Adam step. The off-policy loop
 (and the multi-agent one) is warmed up for one chunk, then:
 
 1. times ``--steps`` vector steps as the loop runs them (no sync inside);
@@ -48,7 +52,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import adam_steps, device_kernels, marl_env  # noqa: E402
+from chip_smoke import device_kernels, marl_env, state_adam_steps  # noqa: E402
 from freerl_tpu_torch import algos  # noqa: E402
 from freerl_tpu_torch.train import loop, marl  # noqa: E402
 from freerl_tpu_torch.envs import make  # noqa: E402
@@ -78,6 +82,10 @@ ONPOLICY = {
     "ppo_bipedal": ("BipedalWalker-v3", "PPO", dict(), 16),
     "ppo_cartpole": ("CartPole-v1", "PPO", dict(), 16),
     "reinforce": ("CartPole-v1", "REINFORCE", dict(), 64),
+    "mappo_spread": ("simple_spread_v3", "MAPPO", dict(), 4),
+    "happo_spread": ("simple_spread_v3", "HAPPO", dict(), 4),
+    "mat_spread": ("simple_spread_v3", "MAT", dict(), 4),
+    "rmappo_spread": ("simple_spread_v3", "RMAPPO", dict(), 10),
 }
 
 
@@ -90,10 +98,13 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
     env_name, algo_name, kwargs, T = ONPOLICY[label]
     env = make(env_name, device="cuda")
     cfg_cls = getattr(algos, algo_name + "Config")
-    if algo_name == "PPO":
+    if algo_name != "REINFORCE":
         kwargs = dict(kwargs, horizon=n * T, num_envs=n)
-    algo = getattr(algos, algo_name)(env.dim_info, cfg_cls(**kwargs),
-                                     device="cuda")
+    multi = getattr(env, "n_agents", 1) > 1       # the algo takes the env
+    algo = getattr(algos, algo_name)(env if multi else env.dim_info,
+                                     cfg_cls(**kwargs), device="cuda")
+    recurrent = hasattr(algo, "init_policy_carry")
+    remap = getattr(env, "action_space_01", False) and env.dim_info.is_continue
     generator = torch.Generator(device="cuda").manual_seed(0)
     record_cap = 10**6
     c = onpolicy.start(env, algo, n, generator, record_cap)
@@ -111,12 +122,12 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
     rollout()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / T
-    before = adam_steps(c.algo_state.opt)
+    before = state_adam_steps(c.algo_state)
     t0 = time.perf_counter()
     onpolicy.learn(algo, c, generator)
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - t0) * 1e3
-    n_adam = adam_steps(c.algo_state.opt) - before
+    n_adam = state_adam_steps(c.algo_state) - before
 
     # 2. synchronized phase times of the rollout's vector steps
     phases = {k: 0.0 for k in ("sample", "env_step", "process")}
@@ -128,9 +139,19 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
         phases[name] += time.perf_counter() - t0
         return out
 
+    def sample(t):
+        draws = algo.draw_action(n, generator)
+        if not recurrent:
+            return algo.sample_action(c.algo_state, c.obs, draws)
+        env_a, stored, logp, c.policy_carry, extras = algo.sample_action(
+            c.algo_state, c.obs, draws, c.policy_carry, c.done_prev)
+        c.extras = onpolicy._write(c.extras, t, T, extras, dict)
+        return env_a, stored, logp
+
     for t in range(T):
-        env_a, stored, logp = timed("sample", lambda: algo.sample_action(
-            c.algo_state, c.obs, algo.draw_action(n, generator)))
+        env_a, stored, logp = timed("sample", lambda: sample(t))
+        if remap:
+            env_a = (env_a + 1.0) / 2.0
         out = timed("env_step", lambda: loop.vec_step_auto_reset(
             env, c.env_state, env_a, generator, n))
 
@@ -146,6 +167,8 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
                 next_obs=next_obs, done=out.terminated,
                 adv_done=out.episode_done))
             c.env_state, c.obs = out.state, carry_obs
+            if recurrent:
+                c.done_prev = out.episode_done
         timed("process", process)
     phase_ms = {k: v * 1e3 / T for k, v in phases.items()}
 
@@ -160,14 +183,14 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
     kernels = device_kernels(prof)
     rollout_table = prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=20)
-    before = adam_steps(c.algo_state.opt)
+    before = state_adam_steps(c.algo_state)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof_u:
         t0 = time.perf_counter()
         onpolicy.learn(algo, c, generator)
         torch.cuda.synchronize()
         update_wall_ms = (time.perf_counter() - t0) * 1e3
-    n_adam_prof = adam_steps(c.algo_state.opt) - before
+    n_adam_prof = state_adam_steps(c.algo_state) - before
     kernels_u = device_kernels(prof_u)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(f"chiprun_out/torch_profile_{label}.txt", "w") as fh:

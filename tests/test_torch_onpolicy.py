@@ -182,15 +182,3 @@ def test_driver_refuses_what_it_does_not_take_yet():
                                                  checkpoint_every=1))
     with pytest.raises(NotImplementedError, match="slice 8"):
         train_onpolicy(env, algo, OnPolicyConfig(), mesh=object())
-
-    class TwoAgents:
-        n_agents = 2
-
-    class Recurrent:
-        def init_policy_carry(self, n):
-            return None
-
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_onpolicy(TwoAgents(), algo, OnPolicyConfig())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_onpolicy(env, Recurrent(), OnPolicyConfig())
