@@ -83,14 +83,35 @@ Phases (any failure raises, and the script exits non-zero):
     (E, A) record equal the RAW rewards' sums, one update per iteration,
     no sum-tree launch; kernels per vector step and per Adam step
     profiled;
-17. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+17. slice 6 on the card against the CPU, at the configurations' widths
+    from identical params and draws: GAIL's ``train_d`` (vanilla, and
+    WGAN-GP with LayerNorm) and ``compute_reward``; one CEM-GD3PG
+    ``learn`` of each guidance branch and a P=10 ``eval_population`` on
+    Pendulum-v1; ENVELOPE's ``add_with_priority``, ``sample`` and
+    ``update`` and one ``EnvelopeDDPG`` learner step; a DQN update
+    through the 'small' and the 'nature' conv trunk; 200 teacher-forced
+    auto-resetting steps of PixelCartPole-v1 and deep-sea-treasure-v0 at
+    1024 envs;
+18. the slice-6 paths at the configurations' widths: GAIL on Pendulum-v1
+    (scripts/gail_e2e.py's learner: expert pairs from
+    ``collect_expert_data``, three ``train_gail`` iterations at 8 envs,
+    then D must tell the expert from the policy); CEM-GD3PG on
+    Pendulum-v1 with its defaults for 12 episodes (one ES tell / ask
+    cycle and the elite mixing); ENVELOPE through ``train_offpolicy`` on
+    deep-sea-treasure-v0 with its defaults, 1024 envs, 96 vector steps
+    (the record equals the raw rewards scalarized with
+    ``record_weights``); pixel DQN on PixelCartPole-v1 (pixel_curve.py's
+    config, 512 envs, 64 vector steps) and one ``train_onpolicy``
+    iteration of a conv-trunk PPO (256 envs, T 16); returns in each env's
+    range, and none of them launches the sum-tree kernel;
+19. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
     simple_spread_v3), seed 0: the mean return of the last episodes must
     clear each recipe's threshold;
-18. print one JSON line describing each kernel (with its launches on the
+20. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
-    on-policy and multi-agent paths), the card line, and the result
-    line.
+    on-policy, multi-agent and slice-6 paths), the card line, and the
+    result line.
 
 It needs no network and builds everything from the checkout.
 """
@@ -2114,6 +2135,472 @@ def phase_marl_onpolicy(label: str) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: GAIL, CEM-GD3PG with the ES suite, ENVELOPE on
+# deep-sea-treasure, the pixel stack
+# ---------------------------------------------------------------------------
+def params_of(*nets) -> torch.Tensor:
+    """Every parameter of the nets, flat, on the CPU."""
+    return torch.cat([p.detach().reshape(-1).cpu() for net in nets
+                      for p in net.parameters()])
+
+
+def held(label: str, cpu: torch.Tensor, card: torch.Tensor, errs: dict,
+         lr: float | None = None, rel: bool = False) -> None:
+    """Card against CPU at the tests' tolerance: 1e-5 on every element
+    (relative to the CPU's magnitude, where above 1, with ``rel``), or,
+    after Adam steps (``lr``), one element in 10,000 allowed past 1e-5 and
+    none past the lr (an Adam step on a gradient that is float noise moves
+    a weight by up to the lr on either device)."""
+    err = (cpu.double() - card.double().cpu()).abs()
+    if rel:
+        err = err / cpu.double().abs().clamp(min=1.0)
+    past = int((err > 1e-5).sum())
+    errs[label] = [float(err.max()), past]
+    if lr is None and past or lr is not None and (
+            past > err.numel() // 10_000 or float(err.max()) > lr):
+        raise AssertionError(f"{label} card vs CPU: max abs err "
+                             f"{float(err.max())}, {past} of {err.numel()} "
+                             f"past 1e-5")
+
+
+def twins(make_algo, init_fields, devs=("cpu", "cuda")):
+    """The algo and its state on each device, the card's nets loaded with
+    the CPU's init (``init_fields``: the state's net fields)."""
+    out = {}
+    for dev in devs:
+        algo = make_algo(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out[dev] = [algo, algo.init(gen)]
+    for name in init_fields:
+        getattr(out["cuda"][1], name).load_state_dict(
+            getattr(out["cpu"][1], name).state_dict())
+    return out
+
+
+PENDULUM_STEP = np.pi ** 2 + 0.1 * 8.0 ** 2 + 0.001 * 2.0 ** 2
+
+
+def phase_card_vs_cpu_slice6():
+    """Slice 6 on the card against the CPU, from identical params and
+    draws, at the configurations' widths: GAIL's ``train_d`` (vanilla; and
+    WGAN-GP with LayerNorm) and ``compute_reward``; one CEM-GD3PG
+    ``learn`` of each guidance branch and a P=10 ``eval_population`` on
+    Pendulum-v1; ENVELOPE's ``add_with_priority``, ``sample`` and
+    ``update``, and one ``EnvelopeDDPG`` learner step; a DQN update
+    through the 'small' and the 'nature' trunk; 200 teacher-forced
+    auto-resetting steps of PixelCartPole-v1 and deep-sea-treasure-v0 at
+    1024 envs."""
+    from freerl_tpu_torch.algos import (CEMGD3PG, DQN, GAIL, CEMDraws,
+                                        CEMGD3PGConfig, DQNConfig, Envelope,
+                                        EnvelopeConfig, EnvelopeDDPG,
+                                        GAILConfig, PPOConfig)
+    from freerl_tpu_torch.core.types import DimInfo, Transition
+    from freerl_tpu_torch.envs import make, step_auto_reset, vec_reset
+
+    rng = np.random.RandomState(6)
+    devs = ("cpu", "cuda")
+    errs = {}
+
+    def on(dev, x):
+        return torch.as_tensor(x).to(dev)
+
+    pendulum = make("Pendulum-v1", device="cpu")
+
+    # GAIL: one D step at full width (2x128, d_batch 256) and the relabel
+    # of a 2048-row rollout
+    for variant, extra in (("vanilla", {}),
+                           ("wgan_gp_ln", dict(gp_coef=10.0,
+                                               d_layernorm=True))):
+        pair = twins(lambda dev: GAIL(pendulum.dim_info, PPOConfig(),
+                                      GAILConfig(**extra), device=dev),
+                     ("disc",))
+        batch = [rng.randn(256, 3).astype(np.float32),
+                 rng.uniform(-2, 2, (256, 1)).astype(np.float32),
+                 rng.randn(256, 3).astype(np.float32),
+                 rng.uniform(-2, 2, (256, 1)).astype(np.float32)]
+        roll = [rng.randn(2048, 3).astype(np.float32),
+                rng.uniform(-2, 2, (2048, 1)).astype(np.float32)]
+        out, reward = {}, {}
+        for dev, (gail, st) in pair.items():
+            reward[dev] = gail.compute_reward(st.disc,
+                                              *[on(dev, x) for x in roll])
+            st, m = gail.train_d(st, *[on(dev, x) for x in batch])
+            out[dev] = torch.cat([params_of(st.disc),
+                                  m["d_loss"].reshape(1).cpu()])
+        held(f"gail_{variant}_reward", reward["cpu"], reward["cuda"], errs)
+        held(f"gail_{variant}_train_d", out["cpu"], out["cuda"], errs, 4e-4)
+
+    # CEM-GD3PG at its defaults (2x128, batch 64): one learn per guidance
+    # branch from the same state and batch, the domain actor a scaled
+    # copy so the guidance term is live
+    nets = ("actor1", "actor2", "actor1_target", "actor2_target", "domain",
+            "critic", "critic_target")
+    pair = twins(lambda dev: CEMGD3PG(pendulum.dim_info, device=dev), nets)
+    cpu_algo, cpu_st = pair["cpu"]
+    dom = cpu_algo.get_params(cpu_st.actor2) * 0.7
+    for dev, (algo, st) in pair.items():
+        algo.set_params(st.domain, dom)
+    for i, is_f1_more in enumerate((True, False)):
+        done = rng.rand(64) < 0.05
+        b = Transition(obs=torch.randn(64, 3),
+                       action=torch.rand(64, 1) * 4 - 2,
+                       reward=torch.randn(64), next_obs=torch.randn(64, 3),
+                       done=torch.as_tensor(done),
+                       episode_done=torch.as_tensor(done))
+        for dev, (algo, st) in pair.items():
+            algo.learn(st, to_device(b, dev), is_f1_more, 0.37)
+        held(f"cem_learn_{'f1' if is_f1_more else 'f2'}",
+             *[params_of(*[getattr(pair[d][1], n) for n in nets])
+               for d in devs], errs, 1e-3)
+    # a P=10 population evaluation on Pendulum-v1 with the CPU's draws
+    env = {dev: make("Pendulum-v1", device=dev) for dev in devs}
+    flat = cpu_algo.get_params(cpu_st.actor1)[None] * (
+        1.0 + 0.3 * rng.randn(10, 1))
+    draws = CEMDraws(torch.Generator().manual_seed(0)).population(
+        env["cpu"], 10, env["cpu"].max_steps)
+    pop = {dev: pair[dev][0].eval_population(env[dev], flat,
+                                             to_device(draws, dev))
+           for dev in devs}
+    # 200 free-running steps: the returns within the tests' rtol 1e-5; the
+    # trajectories within it over the first 60 steps, as in the tests
+    # (the pendulum's swing-up amplifies rounding later on)
+    held("cem_eval_population_fitness_rel", pop["cpu"][0], pop["cuda"][0],
+         errs, rel=True)
+    held("cem_eval_population_obs_rel_60_steps", pop["cpu"][1].obs[:60],
+         pop["cuda"][1].obs[:60], errs, rel=True)
+
+    # ENVELOPE at its defaults (2x256, batch 256, weight_num 4, buffer
+    # 100k) on deep-sea-treasure's widths: an add of 1024 rows with its
+    # priorities and homotopy bumps, a Gumbel-top-k sample from 2048
+    # stored rows, one update
+    dst = make("deep-sea-treasure-v0", device="cpu")
+    pair = twins(lambda dev: Envelope(dst.dim_info, 2, device=dev),
+                 ("net", "target_net"))
+    rows = {}
+    for i in range(2):
+        done = rng.rand(1024) < 0.1
+        rows[i] = Transition(
+            obs=torch.as_tensor(rng.randint(0, 11, (1024, 2)),
+                                dtype=torch.float32),
+            action=torch.as_tensor(rng.randint(0, 4, 1024), dtype=torch.int32),
+            reward=torch.as_tensor(rng.randn(1024, 2), dtype=torch.float32),
+            next_obs=torch.as_tensor(rng.randint(0, 11, (1024, 2)),
+                                     dtype=torch.float32),
+            done=torch.as_tensor(done), episode_done=torch.as_tensor(done))
+    prefs = [torch.randn(1024, 2) for _ in range(2)]
+    gumbel, sampled = None, {}
+    for dev, (algo, st) in pair.items():
+        ex = to_device(rows[0].map(lambda x: x[0]), dev)
+        buf = algo.make_buffer(ex, num_envs=1024)
+        for i in range(2):
+            st, buf = algo.add_with_priority(st, buf, to_device(rows[i], dev),
+                                             prefs[i].to(dev))
+        if gumbel is None:                        # the CPU's draws
+            gumbel = algo.draw_sample(buf, torch.Generator().manual_seed(1))
+            w = torch.randn(4, 2)
+        idx = algo.sample_idx(buf, gumbel.to(dev), 256)
+        st, m, _ = algo.update(st, buf.gather(idx), w.to(dev))
+        sampled[dev] = (buf.priorities[:buf.size].cpu(), idx.cpu(),
+                        params_of(st.net, st.target_net),
+                        st.beta.cpu(), m["loss"].cpu())
+    cpu, card = sampled["cpu"], sampled["cuda"]
+    held("envelope_priorities_rel", cpu[0], card[0], errs, rel=True)
+    if not torch.equal(cpu[1], card[1]) or not torch.equal(cpu[3], card[3]):
+        raise AssertionError("ENVELOPE sample indices or beta card vs CPU")
+    held("envelope_update", cpu[2], card[2], errs, 1e-3)
+    # EnvelopeDDPG: one learner step on Pendulum's widths, 4096 stored rows
+    pair = twins(lambda dev: EnvelopeDDPG(pendulum.dim_info, 2, device=dev),
+                 ("actor", "actor_target", "critic", "critic_target"))
+    batch = Transition(obs=torch.randn(256, 3),
+                       action=torch.rand(256, 1) * 4 - 2,
+                       reward=torch.randn(256, 2),
+                       next_obs=torch.randn(256, 3),
+                       done=torch.rand(256) < 0.05,
+                       episode_done=torch.zeros(256, dtype=torch.bool))
+    w = torch.randn(4, 2)
+    out = {}
+    for dev, (algo, st) in pair.items():
+        st, m, _ = algo.update(st, to_device(batch, dev), w.to(dev))
+        out[dev] = torch.cat([params_of(st.actor, st.actor_target, st.critic,
+                                        st.critic_target),
+                              st.beta.reshape(1).cpu()])
+    held("envelope_ddpg_update", out["cpu"], out["cuda"], errs, 1e-3)
+
+    # DQN through each conv trunk (pixel_curve's 'small' trunk on
+    # PixelCartPole's 48x48x2 frames; the 'nature' trunk on 84x84x4): one
+    # update, batch 64, from the same params and batch
+    for arch, shape, feats in (("small", (48, 48, 2), 128),
+                               ("nature", (84, 84, 4), 512)):
+        obs_dim = int(np.prod(shape))
+        di = DimInfo(obs_dim=obs_dim, action_dim=2)
+        cfg = DQNConfig(obs_shape=shape, conv_arch=arch, cnn_features=feats,
+                        batch_size=64)
+        pair = twins(lambda dev: DQN(di, cfg, device=dev),
+                     ("net", "target_net"))
+        done = rng.rand(64) < 0.1
+        b = Transition(obs=torch.rand(64, obs_dim),
+                       action=torch.as_tensor(rng.randint(0, 2, 64)),
+                       reward=torch.randn(64),
+                       next_obs=torch.rand(64, obs_dim),
+                       done=torch.as_tensor(done),
+                       episode_done=torch.as_tensor(done))
+        fwd = {dev: st.net(b.obs.to(dev)).detach() for dev, (_, st) in
+               pair.items()}
+        held(f"dqn_{arch}_forward", fwd["cpu"], fwd["cuda"], errs)
+        for dev, (algo, st) in pair.items():
+            algo.update(st, to_device(b, dev))
+        held(f"dqn_{arch}_update",
+             *[params_of(pair[d][1].net, pair[d][1].target_net)
+               for d in devs], errs, 1e-3)
+
+    # 200 auto-resetting steps of 1024 envs, the card from the CPU's state
+    # and draws each step. deep-sea-treasure is integer arithmetic: exact.
+    # PixelCartPole's frames threshold distances computed from sin and
+    # cos, which round an ulp apart on the two devices: a pixel may flip
+    # where a distance lies within an ulp of its threshold (at most one
+    # pixel in 10^6); the inner state is CartPole's (rtol / atol 1e-5)
+    b, flips = 1024, {}
+    for name in ("deep-sea-treasure-v0", "PixelCartPole-v1"):
+        env = {dev: make(name, device=dev) for dev in devs}
+        gen = torch.Generator().manual_seed(0)
+        state, _ = vec_reset(env["cpu"], gen, b)
+        pix, done_flips, worst = 0, 0, 0.0
+        for t in range(200):
+            action = torch.randint(0, env["cpu"].dim_info.action_dim, (b,),
+                                   generator=gen)
+            draws = (env["cpu"].draw_step(b, gen),
+                     env["cpu"].draw_reset(b, gen))
+            cpu = step_auto_reset(env["cpu"], state, action, *draws)
+            card = step_auto_reset(env["cuda"], to_device(state, "cuda"),
+                                   action.cuda(), *to_device(draws, "cuda"))
+            same = cpu.episode_done == card.episode_done.cpu()
+            done_flips += int((~same).sum())
+            for field in ("next_obs", "carry_obs", "reward"):
+                a = getattr(cpu, field)[same]
+                c = getattr(card, field).cpu()[same]
+                if name.startswith("deep"):
+                    if not torch.equal(a, c):
+                        raise AssertionError(f"{name} step {t} {field}")
+                else:
+                    pix += int((a != c).sum())
+            if name.startswith("Pixel"):
+                inner = [(getattr(cpu.state.inner, f.name)[same].float(),
+                          getattr(card.state.inner, f.name).cpu()[same]
+                          .float())
+                         for f in dataclasses.fields(cpu.state.inner)]
+                for a, c in inner:
+                    worst = max(worst, float((a - c).abs().max()))
+                    if not torch.allclose(a, c, rtol=1e-5, atol=1e-5):
+                        raise AssertionError(f"{name} step {t} inner state")
+            state = cpu.state
+        flips[name] = [done_flips, pix, worst]
+        compared = b * 200 * 2 * env["cpu"].dim_info.obs_dim
+        if done_flips > 2 or pix > compared // 10**6:
+            raise AssertionError(f"{name} card vs CPU: {done_flips} done "
+                                 f"flags, {pix} pixels differ")
+    log(f"[card-vs-cpu slice 6] GAIL train_d (vanilla, WGAN-GP + LayerNorm) "
+        f"and compute_reward, CEM-GD3PG learn (both branches) and a P=10 "
+        f"eval_population, ENVELOPE add / sample / update, EnvelopeDDPG, "
+        f"DQN through the small and nature trunks, 200 steps x 1024 of "
+        f"deep-sea-treasure and PixelCartPole: ok; (max abs err, elements "
+        f"past 1e-5) {json.dumps(errs)}; env steps (done flags that differ, "
+        f"pixels that differ, inner state max abs err) {json.dumps(flips)}")
+
+
+def sumtree_count(run):
+    """``run()`` with the sum-tree kernel's count set to 0 just before
+    and read just after: (its result, the launches, seconds)."""
+    from freerl_tpu_torch.ops import sumtree
+
+    torch.cuda.synchronize()
+    sumtree.launches = 0
+    t0 = time.time()
+    out = run()
+    launches = sumtree.launches
+    torch.cuda.synchronize()
+    return out, launches, time.time() - t0
+
+
+def phase_gail() -> int:
+    """GAIL on Pendulum-v1 with the learner config of
+    scripts/gail_e2e.py (PPO 2x128, horizon 2048, minibatch 64, lr 1e-4,
+    adv_norm, orthogonal init; D 2x128, d_batch 256, d_lr 1e-4): expert
+    pairs from a fixed energy-pumping controller through
+    ``collect_expert_data``, three ``train_gail`` iterations at 8 envs,
+    then 100 D steps on the expert set against the policy's own actions
+    on the same states, which D must tell apart."""
+    from freerl_tpu_torch.algos import (GAIL, GAILConfig, PPOConfig,
+                                        collect_expert_data, train_gail)
+    from freerl_tpu_torch.envs import make
+
+    env = make("Pendulum-v1", device="cuda")
+
+    def expert_policy(obs):
+        # pump energy with the swing, hold near the top
+        cos, sin, thdot = obs[:, 0], obs[:, 1], obs[:, 2]
+        pump = torch.sign(thdot * cos + 1e-3) * 2.0
+        hold = -(10.0 * torch.atan2(sin, cos) + 1.0 * thdot)
+        return torch.clamp(torch.where(cos > 0.8, hold, pump), -2.0,
+                           2.0)[:, None]
+
+    gail = GAIL(env.dim_info,
+                PPOConfig(horizon=2048, minibatch_size=64, num_envs=8,
+                          actor_lr=1e-4, adv_norm=True, orthogonal_init=True),
+                GAILConfig(d_steps_per_iter=1, d_lr=1e-4), device="cuda")
+
+    def run():
+        expert = collect_expert_data(env, expert_policy, 8192, seed=1)
+        return expert, train_gail(env, gail, expert, num_iterations=3,
+                                  num_envs=8, seed=0)
+
+    (expert, (state, record, history)), launches, secs = sumtree_count(run)
+    if len(record) != 3 or not all(np.isfinite(list(h.values())).all()
+                                   for h in history):
+        raise AssertionError(f"GAIL: {len(record)} iterations, {history}")
+    if not (record.min() >= -PENDULUM_STEP and record.max() <= 0.0):
+        raise AssertionError(f"GAIL: mean true rewards {record} outside "
+                             f"[{-PENDULUM_STEP}, 0]")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for _ in range(100):
+        idx = expert.sample_idx(gen, 256)
+        s, a = expert.gather(idx)
+        policy_a = gail.ppo.evaluate_action(state.ppo_state, s)
+        state, m = gail.train_d(state, s, a, s, policy_a)
+    expert_p, policy_p = float(m["expert_prob"]), float(m["policy_prob"])
+    if not expert_p > policy_p + 0.1:
+        raise AssertionError(f"GAIL: D does not separate the expert "
+                             f"({expert_p}) from the policy ({policy_p})")
+    log(f"[gail Pendulum-v1] 8192 expert pairs, 3 iterations of 2048 env "
+        f"steps (8 envs) in {secs:.2f} s: mean true reward per iteration "
+        f"{[round(float(r), 3) for r in record]}, D expert / policy prob "
+        f"{[round(h['expert_prob'], 3) for h in history]} / "
+        f"{[round(h['policy_prob'], 3) for h in history]}, after 100 more D "
+        f"steps {expert_p:.3f} / {policy_p:.3f}; sumtree launches {launches}")
+    return launches
+
+
+def phase_cem() -> int:
+    """CEM-GD3PG on Pendulum-v1 with ``CEMGD3PGConfig()``'s defaults (pop
+    10, 2x128, batch 64, buffer 200k) for 12 episodes: the tenth ends the
+    first ES generation, so the eleventh starts with a tell / ask, a
+    population evaluation and the elite mixed into the weaker actor."""
+    from freerl_tpu_torch.algos import CEMGD3PG, train_cem_gd3pg
+    from freerl_tpu_torch.envs import make
+
+    env = make("Pendulum-v1", device="cuda")
+    learns = []
+
+    class Counted(CEMGD3PG):
+        def learn_burst(self, state, buffer, buffer_domain, idx, *args):
+            learns.append(len(idx[0]))
+            return super().learn_burst(state, buffer, buffer_domain, idx,
+                                       *args)
+
+    algo = Counted(env.dim_info, device="cuda")
+    (state, returns, info), launches, secs = sumtree_count(
+        lambda: train_cem_gd3pg(env, algo, max_episodes=12, seed=0))
+    nets = params_of(state.actor1, state.actor2, state.critic)
+    if (len(returns) != 12 or not np.isfinite(returns).all()
+            or not bool(torch.isfinite(nets).all())
+            or state.step != sum(learns) or not learns):
+        raise AssertionError(f"CEM-GD3PG: {returns}, {state.step} learner "
+                             f"steps for bursts {learns}")
+    if not (returns.min() >= -200 * PENDULUM_STEP and returns.max() <= 0.0):
+        raise AssertionError(f"CEM-GD3PG: returns {returns}")
+    log(f"[cem Pendulum-v1] 12 episodes, {info['env_steps']} env steps "
+        f"(two population evaluations of 10 x 200), {state.step} learner "
+        f"steps in {len(learns)} bursts, {secs:.2f} s: returns "
+        f"{returns.min():.1f} .. {returns.max():.1f}, fitness EMAs "
+        f"{float(state.f1_total):.1f} / {float(state.f2_total):.1f}; "
+        f"sumtree launches {launches}")
+    return launches
+
+
+def phase_envelope() -> int:
+    """ENVELOPE through ``train_offpolicy`` on deep-sea-treasure-v0 with
+    ``EnvelopeConfig()``'s defaults (2x256, batch 256, buffer 100k,
+    weight_num 4), 1024 envs, 96 vector steps, a learner step each after
+    the first: the record equals the raw vector rewards scalarized with
+    ``record_weights``; beta advanced once per terminated row."""
+    from freerl_tpu_torch.algos import Envelope
+    from freerl_tpu_torch.envs import make, record_scalarize
+    from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy
+
+    env = make("deep-sea-treasure-v0", device="cuda")
+    raw, dones = [], []
+
+    class Probed(probe(Envelope)):
+        def add_transition(self, state, buffer, batch, generator):
+            raw.append(record_scalarize(env, batch.reward).clone())
+            dones.append((batch.episode_done.clone(), batch.done.sum()))
+            return super().add_transition(state, buffer, batch, generator)
+
+    algo = Probed(env.dim_info, env.reward_dim, device="cuda")
+    cfg = OffPolicyConfig(seed=0, num_envs=1024, start_steps=1000,
+                          chunk_size=32, max_env_steps=1024 * 96,
+                          max_episodes=10**9)
+    r = run_probed(lambda: train_offpolicy(env, algo, cfg), env, algo,
+                   "envelope")
+    returns, info = r["returns"], r["info"]
+    want = expected_record([(x, d) for x, (d, _) in zip(raw, dones)])
+    bumps = int(sum(n for _, n in dones))
+    if not np.array_equal(returns, want[:len(returns)]) or not len(returns):
+        raise AssertionError(f"ENVELOPE: the record ({len(returns)}) is not "
+                             f"the scalarized raw rewards'")
+    if not (returns.min() >= -50.0 and returns.max() <= 0.5 * 22.7 + 1e-5):
+        raise AssertionError(f"ENVELOPE: returns {returns.min()} .. "
+                             f"{returns.max()}")
+    if info["updates"] != 96 or len(algo.metrics) != 96:
+        raise AssertionError(f"ENVELOPE: {info['updates']} learner steps")
+    log(f"[envelope deep-sea-treasure-v0] {info['env_steps']} env steps, "
+        f"{info['updates']} learner steps, {info['episodes']} episodes "
+        f"(returns {returns.min():.2f} .. {returns.max():.2f}) in "
+        f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
+        f"env-steps/s, learner step {r['learn_ms']:.3f} ms, peak memory "
+        f"{r['peak_mib']:.1f} MiB, record == scalarized raw rewards', beta "
+        f"{float(algo.metrics[-1]['beta']):.6f} after {bumps} bumps, finite "
+        f"{r['checked']}, sumtree launches {r['launches']}")
+    return r["launches"]
+
+
+def phase_pixel() -> int:
+    """Pixel DQN on PixelCartPole-v1 with scripts/pixel_curve.py's config
+    (small trunk, 128 features, buffer 100k, batch 64) at 512 envs for 64
+    vector steps, a learner step each; then one ``train_onpolicy``
+    iteration of PPO with conv trunks (its defaults, 2x128 after a 'small'
+    trunk of 256 features) at 256 envs, T 16."""
+    from freerl_tpu_torch.algos import DQNConfig, PPOConfig
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import OffPolicyConfig, OnPolicyConfig
+
+    shape = make("PixelCartPole-v1", device="cpu").obs_shape
+    cfg = OffPolicyConfig(seed=0, num_envs=512, start_steps=1000,
+                          chunk_size=32, max_env_steps=512 * 64,
+                          max_episodes=10**9)
+    r = drive("PixelCartPole-v1", DQNConfig(
+        buffer_size=100_000, batch_size=64, obs_shape=shape,
+        conv_arch="small", cnn_features=128), cfg)
+    info, returns = r["info"], r["returns"]
+    if (info["updates"] != 63 or not len(returns)
+            or not (returns.min() >= 1 and returns.max() <= 500)):
+        raise AssertionError(f"pixel DQN: {info}, returns {returns}")
+    log(f"[pixel DQN PixelCartPole-v1] {info['env_steps']} env steps, "
+        f"{info['updates']} learner steps, {info['episodes']} episodes "
+        f"(returns {returns.min()} .. {returns.max()}) in "
+        f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
+        f"env-steps/s, learner step {r['learn_ms']:.3f} ms, peak memory "
+        f"{r['peak_mib']:.1f} MiB, sumtree launches {r['launches']}")
+    launches = r["launches"]
+    p = drive_onpolicy("PixelCartPole-v1", "PPO",
+                       PPOConfig(horizon=256 * 16, num_envs=256,
+                                 obs_shape=shape),
+                       OnPolicyConfig(seed=0, num_envs=256,
+                                      horizon=256 * 16, max_episodes=10**9,
+                                      max_env_steps=256 * 16), 1.0, 500.0)
+    return launches + p["launches"]
+
+
 # The learning checks, one recipe each: the env, the algo, its config's and
 # the loop config's fields (the off-policy loop unless ``driver`` says
 # "onpolicy" or "marl"), the episodes read at each end, and the threshold
@@ -2286,6 +2773,14 @@ def main() -> int:
     kernel["launches_onpolicy"] += sum(
         timed(f"marl onpolicy {label}", phase_marl_onpolicy, label)[
             "launches"] for label in MARL_ONPOLICY_PATHS)
+    timed("card-vs-cpu slice 6", phase_card_vs_cpu_slice6)
+    kernel["launches_slice6"] = sum(
+        timed(name, fn) for name, fn in (
+            ("gail", phase_gail), ("cem", phase_cem),
+            ("envelope", phase_envelope), ("pixel", phase_pixel)))
+    if kernel["launches_slice6"]:
+        raise AssertionError(f"the slice-6 paths launched the sum-tree "
+                             f"kernel {kernel['launches_slice6']} times")
     for name in LEARNING_CHECKS:
         launches = timed(f"learning {name}", phase_learning, name)
         driver = LEARNING_CHECKS[name].get("driver")

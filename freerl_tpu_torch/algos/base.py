@@ -60,7 +60,10 @@ class ExploreDraws:
     random:  the warm-up actions, (B, A) uniform in +-max_action or (B,)
              indices; drawn only during the warm-up;
     policy:  standard normals of a sampled policy where ``normal`` is the
-             exploration noise (MADDPG's Gaussian actor).
+             exploration noise (MADDPG's Gaussian actor);
+    preference: (B, R) standard normals of the preference each row acts
+             under (ENVELOPE, ``algos/envelope.py:random_preference``);
+    uniform: (B,) uniforms of an epsilon-greedy choice (ENVELOPE).
 
     Multi-agent algos put an agent axis after B: (B, n_agents, act_pad).
     """
@@ -70,6 +73,8 @@ class ExploreDraws:
     gumbel: Optional[torch.Tensor] = None
     random: Optional[torch.Tensor] = None
     policy: Optional[torch.Tensor] = None
+    preference: Optional[torch.Tensor] = None
+    uniform: Optional[torch.Tensor] = None
 
 
 def draw_random_actions(dim_info, b: int, generator: torch.Generator,

@@ -6,8 +6,9 @@ TD backup ``r + gamma^m * max_a Q'(s', a) * (1 - d)``, per-step polyak
 tau, Adam(lr 1e-3, eps 1e-8; optax and torch both add eps outside the
 square root), MSE loss (IS-weighted under PER, cross-entropy under C51),
 the Double-DQN argmax from the online net, C51 with 51 atoms on
-[-100, 100]. Pixel observations (``obs_shape``) and a data-parallel axis
-(``axis_name``) raise ``NotImplementedError`` rather than being silently
+[-100, 100]. Pixel observations (``obs_shape``) put a conv trunk
+(``nets/cnn.py``) in front of the hidden layers. A data-parallel axis
+(``axis_name``) raises ``NotImplementedError`` rather than being silently
 ignored.
 
 Every random draw is an argument or comes from the caller's
@@ -25,11 +26,13 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from freerl_tpu_torch.algos.base import ExploreCtx, OffPolicyAlgo
+from freerl_tpu_torch.algos.base import (ExploreCtx, OffPolicyAlgo,
+                                         check_axis_name)
 from freerl_tpu_torch.algos.common import c51_project, polyak, td_target
 from freerl_tpu_torch.buffers.nstep import (nstep_count, nstep_fold,
                                             nstep_sample_range)
 from freerl_tpu_torch.core.types import DimInfo, Transition
+from freerl_tpu_torch.nets.cnn import conv_trunk
 from freerl_tpu_torch.nets.mlp import Dense
 from freerl_tpu_torch.nets.noisy import NoisyDense, NoisyHeads
 
@@ -72,14 +75,7 @@ class DQNConfig:
 
 
 def _check_ported(cfg: DQNConfig) -> None:
-    todo = [name for name in ("obs_shape", "axis_name")
-            if getattr(cfg, name) is not None]
-    if todo:
-        raise NotImplementedError(
-            f"DQN options {todo} are not ported to freerl_tpu_torch yet "
-            "(ROADMAP.md queue A: pixel observations with nets/cnn.py in "
-            "slice 6, data parallelism in slice 8)"
-        )
+    check_axis_name(cfg)
     if cfg.per_sampler not in ("tree", "cumsum"):
         raise ValueError(f"unknown per_sampler {cfg.per_sampler!r}")
 
@@ -87,7 +83,8 @@ def _check_ported(cfg: DQNConfig) -> None:
 class QNetwork(NoisyHeads):
     """One module covering all 8 head combinations: (noisy) x (dueling) x
     (C51). The trunk stays plain ``Dense`` under Noisy; the A head is
-    created before the V head.
+    created before the V head. ``conv`` (a ``ConvTrunk``, for pixel
+    observations) runs first and feeds the hidden layers its features.
 
     Plain output: (..., A) Q-values. Categorical output: (..., A, atoms)
     logits. ``forward(x, noise)`` takes one ``(eps_in, eps_out)`` per noisy
@@ -98,8 +95,10 @@ class QNetwork(NoisyHeads):
                  hidden: Sequence[int] = (128,),
                  generator: torch.Generator | None = None, device="cuda", *,
                  noisy: bool = False, dueling: bool = False,
-                 categorical: bool = False, n_atoms: int = 51):
-        super().__init__(obs_dim, hidden, "relu", generator, device)
+                 categorical: bool = False, n_atoms: int = 51,
+                 conv: torch.nn.Module | None = None):
+        super().__init__(obs_dim, hidden, "relu", generator, device,
+                         conv=conv)
         self.action_dim, self.n_atoms = action_dim, n_atoms
         self.dueling, self.categorical = dueling, categorical
         per_action = n_atoms if categorical else 1
@@ -160,10 +159,12 @@ class DQN(OffPolicyAlgo):
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> DQNState:
         cfg = self.cfg
+        conv = conv_trunk(cfg, generator, self.device)
         net = QNetwork(self.dim_info.obs_dim, self.dim_info.action_dim,
                        tuple(cfg.hidden), generator, self.device,
                        noisy=cfg.noisy, dueling=cfg.dueling,
-                       categorical=cfg.categorical, n_atoms=cfg.n_atoms)
+                       categorical=cfg.categorical, n_atoms=cfg.n_atoms,
+                       conv=conv)
         target = copy.deepcopy(net).requires_grad_(False)
         opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, eps=1e-8)
         return DQNState(net=net, target_net=target, opt=opt)

@@ -17,7 +17,9 @@ std-decay variants (counterpart: ``freerl_tpu/algos/ppo.py``).
   hidden, 0.01 policy heads, 1.0 value head), ``adam_eps`` and ``tanh``;
   the variants ``recompute_logp`` (PPO_d: old log-probs from the
   pre-update policy) and ``std_decay`` (an external std, decayed with the
-  completed episodes).
+  completed episodes);
+- pixel observations (``obs_shape``): the actor and the critic each put
+  their own conv trunk (``nets/cnn.py``) before their hidden layers.
 
 The learning rate decays linearly with the completed episodes: under
 ``lr_decay`` the device episode counter is read to the host once per
@@ -45,6 +47,7 @@ from freerl_tpu_torch.algos.common import clip_grads_by_norm, gae
 from freerl_tpu_torch.core.normalization import RewardScaling, RunningMeanStd
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.nets import distributions as D
+from freerl_tpu_torch.nets.cnn import conv_trunk
 from freerl_tpu_torch.nets.mlp import MLP, Dense, Trunk, init_scheme
 
 
@@ -54,9 +57,11 @@ class GaussianPolicy(MLP):
     def __init__(self, obs_dim: int, action_dim: int,
                  hidden: Sequence[int] = (128, 128), activation: str = "relu",
                  orthogonal: bool = False, max_action: float = 1.0,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 conv: nn.Module | None = None):
         super().__init__(obs_dim, action_dim, hidden, activation, generator,
-                         device, init_scheme(orthogonal), out_gain=0.01)
+                         device, init_scheme(orthogonal), out_gain=0.01,
+                         conv=conv)
         self.max_action = max_action
         self.log_std = nn.Parameter(torch.zeros(action_dim, device=device))
 
@@ -72,10 +77,11 @@ class BetaPolicy(Trunk):
     def __init__(self, obs_dim: int, action_dim: int,
                  hidden: Sequence[int] = (128, 128), activation: str = "relu",
                  orthogonal: bool = False,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 conv: nn.Module | None = None):
         scheme = init_scheme(orthogonal)
         super().__init__(obs_dim, hidden, activation, generator, device,
-                         scheme)
+                         scheme, conv)
         self.alpha_head = Dense(self.trunk_dim, action_dim, generator, device,
                                 scheme, gain=0.01)
         self.beta_head = Dense(self.trunk_dim, action_dim, generator, device,
@@ -92,9 +98,11 @@ class CategoricalPolicy(MLP):
     def __init__(self, obs_dim: int, action_dim: int,
                  hidden: Sequence[int] = (128, 128), activation: str = "relu",
                  orthogonal: bool = False,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 conv: nn.Module | None = None):
         super().__init__(obs_dim, action_dim, hidden, activation, generator,
-                         device, init_scheme(orthogonal), out_gain=0.01)
+                         device, init_scheme(orthogonal), out_gain=0.01,
+                         conv=conv)
 
 
 class VCritic(MLP):
@@ -102,9 +110,10 @@ class VCritic(MLP):
 
     def __init__(self, obs_dim: int, hidden: Sequence[int] = (128, 128),
                  activation: str = "relu", orthogonal: bool = False,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 conv: nn.Module | None = None):
         super().__init__(obs_dim, 1, hidden, activation, generator, device,
-                         init_scheme(orthogonal), out_gain=1.0)
+                         init_scheme(orthogonal), out_gain=1.0, conv=conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x).squeeze(-1)
@@ -145,7 +154,8 @@ class PPOConfig:
     std_min: float = 0.1
     std_decay_episodes: int = 200
     axis_name: Optional[str] = None
-    # pixel observations: a conv trunk, which waits for nets/cnn.py
+    # pixel observations: set to the env's (H, W, C) to give the actor
+    # and the critic each its own conv trunk (nets/cnn.py)
     obs_shape: Optional[tuple] = None
     conv_arch: str = "small"
     cnn_features: int = 256
@@ -189,10 +199,6 @@ class PPO:
     def __init__(self, dim_info: DimInfo, cfg: PPOConfig = PPOConfig(),
                  device="cuda"):
         check_axis_name(cfg)
-        if cfg.obs_shape is not None:
-            raise NotImplementedError(
-                "pixel observations (obs_shape) wait for nets/cnn.py "
-                "(ROADMAP.md queue A, item 19)")
         self.dim_info = dim_info
         self.cfg = cfg
         self.device = torch.device(device)
@@ -202,16 +208,18 @@ class PPO:
         cfg, di, dev = self.cfg, self.dim_info, self.device
         act = "tanh" if cfg.tanh else "relu"
         hid, ortho = tuple(cfg.hidden), cfg.orthogonal_init
+        conv = conv_trunk(cfg, generator, dev)
         if not di.is_continue:
             actor = CategoricalPolicy(di.obs_dim, di.action_dim, hid, act,
-                                      ortho, generator, dev)
+                                      ortho, generator, dev, conv)
         elif cfg.beta_dist:
             actor = BetaPolicy(di.obs_dim, di.action_dim, hid, act, ortho,
-                               generator, dev)
+                               generator, dev, conv)
         else:
             actor = GaussianPolicy(di.obs_dim, di.action_dim, hid, act, ortho,
-                                   di.max_action, generator, dev)
-        critic = VCritic(di.obs_dim, hid, act, ortho, generator, dev)
+                                   di.max_action, generator, dev, conv)
+        critic = VCritic(di.obs_dim, hid, act, ortho, generator, dev,
+                         conv_trunk(cfg, generator, dev))
         opt = torch.optim.Adam(
             [*actor.parameters(), *critic.parameters()], lr=cfg.actor_lr,
             eps=1e-5 if cfg.adam_eps else 1e-6, weight_decay=0.0)

@@ -68,25 +68,30 @@ class ReplayBuffer:
                 f"path. Create the buffer with add_batch=0 for mixed-size "
                 f"adds (scatter path)."
             )
-        start = self.pos
-        if b > self.capacity:
-            # the scatter would write some slots twice, and a CUDA
-            # index_put_ gives no order: write only the last capacity rows,
-            # the ones a last-writer-wins scatter keeps
-            start = (self.pos + b - self.capacity) % self.capacity
-            batch = batch.map(lambda x: x[b - self.capacity:])
-        if self.align > 0:
-            rows = slice(self.pos, self.pos + b)
-        else:
-            rows = (start + torch.arange(min(b, self.capacity),
-                                         device=batch.obs.device)) \
-                % self.capacity
+        rows, skip = self.rows(b)
+        if skip:
+            batch = batch.map(lambda x: x[skip:])
         for f in dataclasses.fields(Transition):
             buf = getattr(self.data, f.name)
             buf[rows] = getattr(batch, f.name).to(buf.dtype)
         self.pos = (self.pos + b) % self.capacity
         self.size = min(self.size + b, self.capacity)
         return self
+
+    def rows(self, b: int):
+        """The ring rows an add of ``b`` transitions writes, and how many
+        of its leading transitions it skips. An add larger than the ring
+        would write some slots twice, and a CUDA ``index_put_`` gives no
+        order: it writes only its last ``capacity`` rows, the ones a
+        last-writer-wins scatter keeps."""
+        if self.align > 0:
+            return slice(self.pos, self.pos + b), 0
+        skip = max(b - self.capacity, 0)
+        start = (self.pos + skip) % self.capacity
+        rows = (start + torch.arange(b - skip,
+                                     device=self.data.obs.device)) \
+            % self.capacity
+        return rows, skip
 
     # ------------------------------------------------------------------
     def _upcast(self, batch: Transition) -> Transition:

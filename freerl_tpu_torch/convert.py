@@ -35,6 +35,15 @@ deeper than a plain ``nn.Dense``; the GRU's six denses keep flax's names
 (``gru.dense.ir``, ...); MAT's blocks are listed in ``_MAT_NAMES``. The
 stacked MAPPO nets take each agent's tree, stacked on a leading axis.
 
+Slice 6: a pixel net's ``ConvTrunk_0`` (``Conv_i/{kernel, bias}`` and a
+plain ``nn.Dense``) is its ``conv`` (``conv_params_from_flax``; a conv
+kernel ``(kh, kw, in, out)`` is the weight ``(out, in, kh, kw)``); GAIL's
+discriminator is plain ``nn.Dense`` and ``LayerNorm`` layers
+(``gail_disc_params_from_flax``, ``gail_state_from_flax``); CEM-GD3PG's
+and ENVELOPE's nets are framework ``Dense`` MLPs
+(``cem_gd3pg_state_from_flax``, ``envelope_state_from_flax``), and
+``flat_from_flax`` gives a tree's ``ravel_pytree`` vector.
+
 Kernels are ``(in, out)`` and torch weights ``(out, in)``, so they are
 transposed. Adam moments start at zero on both sides and need no carrying
 over.
@@ -63,7 +72,9 @@ def dqn_params_from_flax(params: dict,
     """Turn a flax ``QNetwork`` param tree (nested dicts of numpy arrays)
     into a ``state_dict`` for :class:`freerl_tpu_torch.algos.dqn.QNetwork`
     with the same head combination (``dueling`` as configured; Noisy and
-    C51 show in the tree itself)."""
+    C51 show in the tree itself; a pixel net's ``ConvTrunk_0`` is its
+    ``conv``)."""
+    params, state = _split_conv(params)
     dense = _by_suffix(k for k in params if k.startswith("Dense_"))
     noisy = _by_suffix(k for k in params if k.startswith("NoisyDense_"))
     heads = ["head", "v_head"] if dueling else ["head"]
@@ -72,7 +83,6 @@ def dqn_params_from_flax(params: dict,
             or noisy and len(noisy) != len(heads)):
         raise ValueError(
             f"not a QNetwork tree with dueling={dueling}: {sorted(params)}")
-    state = {}
     targets = [f"hidden.{i}" for i in range(n_hidden)] + ([] if noisy else heads)
     for name, target in zip(dense, targets):
         layer = params[name]["Dense_0"]
@@ -107,7 +117,8 @@ def net_params_from_flax(params: dict,
     actor or critic (nested dicts of numpy arrays) into a ``state_dict``
     for the port's net of the same kind; ``beta`` for PPO's two-headed
     ``BetaPolicy``, whose tree alone does not tell its heads from a hidden
-    layer."""
+    layer. A pixel net's ``ConvTrunk_0`` is its ``conv``."""
+    params, conv = _split_conv(params)
     twin = {k for k in params if k.startswith(("q1_", "q2_"))}
     if twin:
         if twin != set(params):
@@ -127,7 +138,34 @@ def net_params_from_flax(params: dict,
     state = _mlp_params([params[k] for k in dense], heads=heads)
     if extra:
         state["log_std"] = _t(params["log_std"])
+    return {**conv, **state}
+
+
+def conv_params_from_flax(params: dict,
+                          prefix: str = "") -> dict[str, torch.Tensor]:
+    """A flax ``ConvTrunk`` tree (``Conv_i/{kernel, bias}``, then a plain
+    ``nn.Dense`` ``Dense_0``) as a state_dict of the port's: a kernel
+    ``(kh, kw, in, out)`` is the weight ``(out, in, kh, kw)``."""
+    convs = _by_suffix(k for k in params if k.startswith("Conv_"))
+    if sorted(convs + ["Dense_0"]) != sorted(params):
+        raise ValueError(f"not a ConvTrunk tree: {sorted(params)}")
+    state = {}
+    for i, name in enumerate(convs):
+        kernel = np.asarray(params[name]["kernel"], np.float32)
+        state[f"{prefix}convs.{i}"] = torch.from_numpy(
+            kernel.transpose(3, 2, 0, 1).copy())
+        state[f"{prefix}biases.{i}"] = _t(params[name]["bias"])
+    state.update(_dense(params["Dense_0"], f"{prefix}dense"))
     return state
+
+
+def _split_conv(params: dict):
+    """A net's tree without its ``ConvTrunk_0``, and that trunk's
+    state_dict entries under ``conv.`` (none without one)."""
+    if "ConvTrunk_0" not in params:
+        return params, {}
+    rest = {k: v for k, v in params.items() if k != "ConvTrunk_0"}
+    return rest, conv_params_from_flax(params["ConvTrunk_0"], "conv.")
 
 
 def _dense(layer: dict, name: str, wrapped: bool = False,
@@ -386,3 +424,78 @@ def mat_state_from_flax(state, flax_state) -> None:
                                         _table(_MAT_NAMES["enc"])))
     state.decoder.load_state_dict(_tree(flax_state.dec_params,
                                         _table(_MAT_NAMES["dec"])))
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: GAIL, CEM-GD3PG, ENVELOPE
+# ---------------------------------------------------------------------------
+def gail_disc_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """A flax GAIL ``Discriminator`` tree (plain ``nn.Dense`` layers
+    ``Dense_i``, the last the head, and ``LayerNorm_i`` under
+    ``layernorm``) as a state_dict of the port's."""
+    dense = _by_suffix(k for k in params if k.startswith("Dense_"))
+    norms = _by_suffix(k for k in params if k.startswith("LayerNorm_"))
+    if (len(dense) + len(norms) != len(params)
+            or norms and len(norms) != len(dense) - 1):
+        raise ValueError(f"not a Discriminator tree: {sorted(params)}")
+    names = [f"layers.{i}" for i in range(len(dense) - 1)] + ["head"]
+    state = {}
+    for flax_name, name in zip(dense, names):
+        state.update(_dense(params[flax_name], name))
+    for i, flax_name in enumerate(norms):
+        state[f"norms.{i}.scale"] = _t(params[flax_name]["scale"])
+        state[f"norms.{i}.bias"] = _t(params[flax_name]["bias"])
+    return state
+
+
+def gail_state_from_flax(state, flax_state) -> None:
+    """Load a JAX GAIL state into the port's, in place: the PPO
+    generator's actor and critic, and the discriminator."""
+    beta = "alpha_head.weight" in state.ppo_state.actor.state_dict()
+    state.ppo_state.actor.load_state_dict(net_params_from_flax(
+        flax_state.ppo_state.actor_params, beta=beta))
+    state.ppo_state.critic.load_state_dict(net_params_from_flax(
+        flax_state.ppo_state.critic_params))
+    state.disc.load_state_dict(gail_disc_params_from_flax(
+        flax_state.d_params))
+
+
+def flat_from_flax(params: dict) -> np.ndarray:
+    """A flax param tree as one flat float32 vector in
+    ``jax.flatten_util.ravel_pytree``'s order: dict keys sorted, leaves
+    raveled row-major (CEM-GD3PG's ES population vectors)."""
+    if not isinstance(params, dict):
+        return np.asarray(params, np.float32).reshape(-1)
+    return np.concatenate([flat_from_flax(params[k]) for k in sorted(params)])
+
+
+def _load_into(net: torch.nn.Module, params: dict) -> None:
+    net.load_state_dict(net_params_from_flax(params))
+
+
+def cem_gd3pg_state_from_flax(state, flax_state) -> None:
+    """Load a JAX CEM-GD3PG state (its param trees as numpy arrays) into
+    the port's, in place: both actors, their targets, the domain actor,
+    the critic and its target, and the float32 fitness EMAs."""
+    for name in ("actor1", "actor2", "actor1_target", "actor2_target",
+                 "domain", "critic", "critic_target"):
+        _load_into(getattr(state, name), getattr(flax_state, name))
+    state.f1_total = np.float32(flax_state.f1_total)
+    state.f2_total = np.float32(flax_state.f2_total)
+
+
+def envelope_state_from_flax(state, flax_state) -> None:
+    """Load a JAX ENVELOPE state into the port's, in place: ``MOQNet``
+    and its target (``Envelope``), or ``MOActor`` / ``MOCritic`` and their
+    targets (``EnvelopeDDPG``); beta and its delta."""
+    if hasattr(flax_state, "params"):
+        pairs = (("net", "params"), ("target_net", "target_params"))
+    else:
+        pairs = (("actor", "actor_params"), ("actor_target", "actor_target"),
+                 ("critic", "critic_params"), ("critic_target",
+                                               "critic_target"))
+    for name, flax_name in pairs:
+        _load_into(getattr(state, name), getattr(flax_state, flax_name))
+    with torch.no_grad():
+        state.beta.fill_(float(flax_state.beta))
+        state.beta_delta.fill_(float(flax_state.beta_delta))

@@ -3,8 +3,8 @@
 ``make(name, device=...)`` returns a batched :class:`Env` on ``device``;
 ``make(name, dis_to_con=True)`` wraps a continuous-action env in the
 discrete bridge (16 bins for 1-D actions, ``bins_per_dim ** N`` for N-D).
-Every env of the JAX package that this port has not reached yet raises
-``KeyError`` naming the ROADMAP queue item that ports it.
+Every env the JAX package's ``make`` serves is registered; another name
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from freerl_tpu_torch.envs.classic import (
 from freerl_tpu_torch.envs.goal import GoalPendulum
 from freerl_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderContinuous
 from freerl_tpu_torch.envs.masked import ActionMaskWrapper, MaskedSpread
+from freerl_tpu_torch.envs.mo import DeepSeaTreasure
 from freerl_tpu_torch.envs.mpe import (
     MPEBase,
     SimpleAdversary,
@@ -35,6 +36,7 @@ from freerl_tpu_torch.envs.mpe import (
     SimpleTag,
     SimpleWorldComm,
 )
+from freerl_tpu_torch.envs.pixel import PixelCartPole
 from freerl_tpu_torch.envs.tabular import FrozenLake, Taxi
 
 _REGISTRY = {
@@ -52,13 +54,8 @@ _REGISTRY = {
     "simple_adversary_v3": SimpleAdversary,
     "simple_tag_v3": SimpleTag,
     "simple_world_comm_v3": SimpleWorldComm,
-}
-
-# envs of the JAX package not ported yet, with the ROADMAP queue A item
-# that ports them
-_PENDING = {
-    "deep-sea-treasure-v0": "queue A, slice 6 (envs/mo.py)",
-    "PixelCartPole-v1": "queue A, slice 6 (envs/pixel.py)",
+    "deep-sea-treasure-v0": DeepSeaTreasure,
+    "PixelCartPole-v1": PixelCartPole,
 }
 
 
@@ -69,11 +66,8 @@ def register(name: str, cls) -> None:
 def make(name: str, dis_to_con: bool = False, n_bins: int = 16,
          bins_per_dim: int = 2, device="cuda", **kwargs) -> Env:
     if name not in _REGISTRY:
-        where = _PENDING.get(name, "no queue: the JAX package has no such env")
         raise KeyError(
-            f"Env {name!r} is not ported to freerl_tpu_torch yet ({where} in "
-            f"ROADMAP.md); ported: {sorted(_REGISTRY)}"
-        )
+            f"Unknown env {name!r}; registered: {sorted(_REGISTRY)}")
     env = _REGISTRY[name](device=device, **kwargs)
     if dis_to_con and env.dim_info.is_continue:
         env = DisToConWrapper(env, n_bins=n_bins, bins_per_dim=bins_per_dim)
@@ -84,6 +78,7 @@ __all__ = [
     "ActionMaskWrapper",
     "BipedalWalker",
     "CartPole",
+    "DeepSeaTreasure",
     "DisToConWrapper",
     "Env",
     "FixedResetWrapper",
@@ -96,6 +91,7 @@ __all__ = [
     "MountainCar",
     "MountainCarContinuous",
     "Pendulum",
+    "PixelCartPole",
     "SimpleAdversary",
     "SimpleSpread",
     "SimpleTag",

@@ -91,9 +91,12 @@ def row_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _select(mask: torch.Tensor, a, b):
-    """Field-wise ``where(mask, a, b)`` over two state dataclasses, with
-    ``mask`` of shape (B,) broadcast over trailing dims."""
+    """Field-wise ``where(mask, a, b)`` over two state dataclasses (a field
+    may itself be one: the pixel env's inner state), with ``mask`` of shape
+    (B,) broadcast over trailing dims."""
     def pick(x, y):
+        if dataclasses.is_dataclass(x):
+            return _select(mask, x, y)
         return torch.where(row_mask(mask, x), x, y)
 
     return type(a)(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))

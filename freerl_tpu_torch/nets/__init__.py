@@ -1,3 +1,4 @@
+from freerl_tpu_torch.nets.cnn import ConvTrunk
 from freerl_tpu_torch.nets.mlp import (MLP, CategoricalQNet, Dense,
                                        DuelingQNet, StackedDense)
 from freerl_tpu_torch.nets.noisy import (NoisyCategoricalQNet, NoisyDense,
@@ -7,6 +8,7 @@ from freerl_tpu_torch.nets.rnn import (GRUCell, RecurrentActor,
                                        RecurrentTrunk, RecurrentVCritic)
 
 __all__ = [
+    "ConvTrunk",
     "MLP",
     "Dense",
     "DuelingQNet",

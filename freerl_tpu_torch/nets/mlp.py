@@ -120,13 +120,17 @@ class StackedDense(nn.Module):
 
 
 class Trunk(nn.Module):
-    """The hidden layers shared by the nets below: ``Dense`` + activation."""
+    """The hidden layers shared by the nets below: ``Dense`` + activation,
+    after ``conv`` (a ``nets/cnn.py`` ``ConvTrunk``, for pixel
+    observations) where one is given: the hidden layers then take its
+    features."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], activation: str,
                  generator: torch.Generator | None, device,
-                 scheme: str = "torch"):
+                 scheme: str = "torch", conv: nn.Module | None = None):
         super().__init__()
-        dims = [in_dim, *hidden]
+        self.conv = conv
+        dims = [in_dim if conv is None else conv.features, *hidden]
         self.hidden = nn.ModuleList(
             Dense(a, b, generator, device, scheme)
             for a, b in zip(dims[:-1], dims[1:])
@@ -135,6 +139,8 @@ class Trunk(nn.Module):
         self.trunk_dim = dims[-1]
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is not None:
+            x = self.conv(x)
         for layer in self.hidden:
             x = self.act(layer(x))
         return x
@@ -149,8 +155,9 @@ class MLP(Trunk):
                  activation: str = "relu",
                  generator: torch.Generator | None = None, device="cuda",
                  scheme: str = "torch", out_scheme: str | None = None,
-                 out_gain: float = 1.0):
-        super().__init__(in_dim, hidden, activation, generator, device, scheme)
+                 out_gain: float = 1.0, conv: nn.Module | None = None):
+        super().__init__(in_dim, hidden, activation, generator, device, scheme,
+                         conv)
         self.head = Dense(self.trunk_dim, out_dim, generator, device,
                           out_scheme or scheme, gain=out_gain)
 

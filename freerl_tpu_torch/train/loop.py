@@ -1,8 +1,9 @@
 """Vectorized off-policy actor-learner loop (counterpart:
 ``freerl_tpu/train/loop.py``).
 
-One vector step is, in order: explore, auto-resetting env step, replay add,
-chronological episode record, then the learner burst. Everything runs on
+One vector step is, in order: explore, auto-resetting env step, replay add
+(through the algo's ``add_transition`` where it has one), chronological
+episode record, then the learner burst. Everything runs on
 the algo's and env's device. The host only counts: ``start_steps`` and
 the learn cadence are counted in TOTAL env steps (num_envs per vector step)
 as Python ints, so deciding whether to learn costs no device sync, and the
@@ -65,7 +66,8 @@ def example_transition(env: Env, algo=None) -> Transition:
     """One transition with no batch dim, to allocate the replay ring: a
     float (action_dim,) action for continuous envs, the algo's
     ``stored_action_example()`` where it stores something richer than the
-    env's index (discrete DDPG), else an int32 index."""
+    env's index (discrete DDPG), else an int32 index; a multi-objective
+    env's (reward_dim,) reward, else a scalar one."""
     di = env.dim_info
     dev = env.device
     if di.is_continue:
@@ -74,10 +76,12 @@ def example_transition(env: Env, algo=None) -> Transition:
         action = algo.stored_action_example().to(dev)
     else:
         action = torch.zeros((), dtype=torch.int32, device=dev)
+    rdim = getattr(env, "reward_dim", 1)
     return Transition(
         obs=torch.zeros(di.obs_dim, dtype=torch.float32, device=dev),
         action=action,
-        reward=torch.zeros((), dtype=torch.float32, device=dev),
+        reward=torch.zeros((rdim,) if rdim > 1 else (), dtype=torch.float32,
+                           device=dev),
         next_obs=torch.zeros(di.obs_dim, dtype=torch.float32, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),
         episode_done=torch.zeros((), dtype=torch.bool, device=dev),
@@ -125,10 +129,16 @@ def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,
         c.algo_state, out.next_obs, out.carry_obs
     )
     dones = out.episode_done
-    c.buffer = c.buffer.add(Transition(
-        obs=c.obs, action=stored, reward=out.reward, next_obs=next_obs,
-        done=out.terminated, episode_done=dones,
-    ))
+    trans = Transition(obs=c.obs, action=stored, reward=out.reward,
+                       next_obs=next_obs, done=out.terminated,
+                       episode_done=dones)
+    if hasattr(algo, "add_transition"):
+        # an algo-mediated add (ENVELOPE's add-time priorities and its
+        # homotopy schedule)
+        c.algo_state, c.buffer = algo.add_transition(
+            c.algo_state, c.buffer, trans, generator)
+    else:
+        c.buffer = c.buffer.add(trans)
 
     record_episodes(env, c, out.reward, dones, record_cap)
     c.done_prev = dones

@@ -4,7 +4,8 @@
         [--config per|uniform|rainbow|ddpg|td3|sac|ppo_bipedal|ppo_cartpole|
                   reinforce|maddpg_spread|matd3_spread|masac_spread|
                   maac_spread|maddpg_worldcomm|mappo_spread|happo_spread|
-                  mat_spread|rmappo_spread]
+                  mat_spread|rmappo_spread|gail_pendulum|cem_pendulum|
+                  envelope_dst|pixel_dqn]
         [--num-envs 1024] [--steps 32]
 
 Builds the actor-learner loop of ``train_offpolicy`` at full width (buffer
@@ -35,6 +36,16 @@ vector step and per Adam step. The off-policy loop
    the device's busy share (kernel time over the profiled wall time, which
    the profiler itself stretches), the kernels per step and the kernels
    that take the most device time.
+
+Slice 6: ``envelope_dst`` (ENVELOPE at its defaults on deep-sea-treasure-v0,
+its replay add through ``add_transition``) and ``pixel_dqn`` (DQN with
+scripts/pixel_curve.py's small conv trunk on PixelCartPole-v1) run the
+off-policy loop above. ``gail_pendulum`` profiles one GAIL iteration
+(scripts/gail_e2e.py's learner, 8 envs by default, T = 2048 / envs): the
+rollout per vector step, the D step, the PPO update per Adam step, the
+whole iteration. ``cem_pendulum`` profiles CEM-GD3PG at its defaults: a
+fused 4-lane 200-step episode, a 10 x 200 population evaluation, and
+learner steps.
 
 Prints one JSON line at the end; writes the profiler table to
 ``torch_profile_<config>.txt`` in the git-ignored output directory.
@@ -67,7 +78,18 @@ CONFIGS = {
     "ddpg": ("LunarLanderContinuous-v2", "DDPG", dict(batch_size=256)),
     "td3": ("LunarLanderContinuous-v2", "TD3", dict(batch_size=256)),
     "sac": ("LunarLanderContinuous-v2", "SAC", dict(batch_size=256)),
+    # slice 6: ENVELOPE at its defaults (2x256, batch 256, buffer 100k,
+    # weight_num 4); pixel DQN with scripts/pixel_curve.py's config
+    "envelope_dst": ("deep-sea-treasure-v0", "Envelope", dict()),
+    "pixel_dqn": ("PixelCartPole-v1", "DQN",
+                  dict(buffer_size=100_000, batch_size=64,
+                       obs_shape=(48, 48, 2), conv_arch="small",
+                       cnn_features=128)),
 }
+# slice 6's training loops of their own: GAIL on Pendulum-v1 with
+# scripts/gail_e2e.py's learner at 8 envs, CEM-GD3PG on Pendulum-v1 at its
+# defaults
+OWN = ("gail_pendulum", "cem_pendulum")
 # multi-agent config of train_marl, at the configs' defaults (2x128, batch
 # 256, replay 1e6): (env, algo, config keywords); MATD3 is MADDPG with twin
 MARL = {
@@ -218,26 +240,186 @@ def profile_onpolicy(label: str, n: int, card: str) -> dict:
     }
 
 
+def profiled(fn):
+    """(ms, kernels, device busy share) of ``fn()`` under torch.profiler,
+    synchronized."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    return (wall_ms, len(kernels),
+            sum(e.device_time for e in kernels) / 1e3 / wall_ms)
+
+
+def synced_ms(fn, reps: int = 1) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_gail(n: int, card: str) -> dict:
+    """One GAIL iteration (T = 2048 // n vector steps, one D step, the
+    relabel, one PPO update), by phase."""
+    from freerl_tpu_torch.algos import GAIL, GAILConfig, PPOConfig, Rollout
+    from freerl_tpu_torch.algos.gail import (ExpertData, GAILDraws,
+                                             gail_iteration)
+    from freerl_tpu_torch.envs import step_auto_reset, vec_reset
+
+    env = make("Pendulum-v1", device="cuda")
+    gail = GAIL(env.dim_info,
+                PPOConfig(horizon=2048, minibatch_size=64, num_envs=n,
+                          actor_lr=1e-4, adv_norm=True, orthogonal_init=True),
+                GAILConfig(d_steps_per_iter=1, d_lr=1e-4), device="cuda")
+    T = 2048 // n
+    g = torch.Generator(device="cuda").manual_seed(0)
+    expert = ExpertData(torch.randn(8192, 3, device="cuda"),
+                        torch.rand(8192, 1, device="cuda") * 4 - 2)
+    draws = GAILDraws(g)
+    state = gail.init(g)
+    env_state, obs = vec_reset(env, g, n)
+
+    def iteration():
+        nonlocal state, env_state, obs
+        state, env_state, obs, _ = gail_iteration(
+            gail, env, expert, state, env_state, obs,
+            draws.iteration(gail, env, n, T, 8192))
+
+    iteration()                                   # warm-up
+    it_ms = synced_ms(iteration)
+    d = draws.iteration(gail, env, n, T, 8192)
+
+    def rollout():
+        nonlocal env_state, obs
+        for t in range(T):
+            a, _, _ = gail.ppo.sample_action(state.ppo_state, obs,
+                                             d.action[t])
+            out = step_auto_reset(env, env_state, a, d.step[t], d.reset[t])
+            env_state, obs = out.state, out.carry_obs
+
+    s, a = expert.sample(g, 256)
+    roll = Rollout(obs=torch.randn(T, n, 3, device="cuda"),
+                   action=torch.randn(T, n, 1, device="cuda"),
+                   log_pi=torch.randn(T, n, device="cuda"),
+                   reward=torch.randn(T, n, device="cuda"),
+                   next_obs=torch.randn(T, n, 3, device="cuda"),
+                   done=torch.zeros(T, n, dtype=torch.bool, device="cuda"),
+                   adv_done=torch.zeros(T, n, dtype=torch.bool,
+                                        device="cuda"))
+    rollout_ms, rollout_k, rollout_busy = profiled(rollout)
+    d_ms, d_k, _ = profiled(lambda: gail.train_d(state, s, a, s, a))
+    before = state_adam_steps(state.ppo_state)
+    u_ms, u_k, u_busy = profiled(lambda: gail.ppo.update(
+        state.ppo_state, roll, gail.ppo.draw_update(roll, g)))
+    adam = state_adam_steps(state.ppo_state) - before
+    it_prof_ms, it_k, it_busy = profiled(iteration)
+    return {
+        "config": "gail_pendulum", "num_envs": n, "T": T, "card": card,
+        "iteration_ms": it_ms,
+        "env_steps_per_s": n * T / (it_ms / 1e3),
+        "vector_step_ms_profiled": rollout_ms / T,
+        "kernels_per_vector_step": rollout_k / T,
+        "device_busy_share_rollout": rollout_busy,
+        "d_step_ms_profiled": d_ms, "kernels_per_d_step": d_k,
+        "iteration_ms_profiled": it_prof_ms, "kernels_per_iteration": it_k,
+        "device_busy_share_iteration": it_busy,
+        "update_ms_profiled": u_ms, "update_adam_steps": adam,
+        "update_kernels_per_adam_step": u_k / max(adam, 1),
+        "device_busy_share_update": u_busy,
+    }
+
+
+def profile_cem(card: str) -> dict:
+    """CEM-GD3PG at its defaults on Pendulum-v1: a fused 4-lane episode
+    (200 steps), a population evaluation (10 x 200) and learner steps,
+    each by itself."""
+    from freerl_tpu_torch.algos import CEMGD3PG, CEMDraws
+    from freerl_tpu_torch.buffers import ReplayBuffer
+    from freerl_tpu_torch.core.types import Transition
+
+    env = make("Pendulum-v1", device="cuda")
+    algo = CEMGD3PG(env.dim_info, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    draws = CEMDraws(g)
+    state = algo.init(g)
+    flat4 = torch.stack([algo.flat(state.actor1),
+                         algo.flat(state.actor2)]).repeat(2, 1)
+    sig4 = torch.tensor([0.0, 0.0, 0.1, 0.1], device="cuda")
+    pop = algo.get_params(state.actor1)[None].repeat(10, 0)
+
+    def episode():
+        algo.rollout(env, flat4, draws.chunk(env, True, 200), sig4)
+
+    def population():
+        algo.eval_population(env, pop, draws.population(env, 10, 200))
+
+    _, trans = algo.eval_population(env, pop, draws.population(env, 10,
+                                                               200))
+    buf = ReplayBuffer.create(200_000, trans.map(lambda x: x[0, 0]))
+    buf.add(trans.map(lambda x: x.reshape((-1,) + tuple(x.shape[2:]))))
+
+    def learn(k):
+        algo.learn_burst(state, buf, buf, draws.burst(k, 32, buf.size,
+                                                      buf.size),
+                         True, 0.5)
+
+    episode()
+    learn(2)                                        # warm-up
+    ep_ms, ep_k, ep_busy = profiled(episode)
+    pop_ms, pop_k, _ = profiled(population)
+    learn_ms = synced_ms(lambda: learn(100)) / 100
+    l_ms, l_k, l_busy = profiled(lambda: learn(10))
+    return {
+        "config": "cem_pendulum", "card": card,
+        "fused_vector_step_ms_profiled": ep_ms / 200,
+        "fused_kernels_per_vector_step": ep_k / 200,
+        "device_busy_share_fused": ep_busy,
+        "population_vector_step_ms_profiled": pop_ms / 200,
+        "population_kernels_per_vector_step": pop_k / 200,
+        "learner_step_ms": learn_ms,
+        "learner_step_ms_profiled": l_ms / 10,
+        "kernels_per_learner_step": l_k / 10,
+        "device_busy_share_learn": l_busy,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY)
-                    + sorted(MARL), default="per")
-    ap.add_argument("--num-envs", type=int, default=1024)
+                    + sorted(MARL) + sorted(OWN), default="per")
+    ap.add_argument("--num-envs", type=int, default=None,
+                    help="1024 (gail_pendulum: 8)")
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA card", file=sys.stderr)
         return 1
+    # float32 throughout, as chip_smoke.py runs the port (torch's cuDNN
+    # default would run the conv trunks in TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     label = args.config
+    n = args.num_envs or (8 if label == "gail_pendulum" else 1024)
     if label in ONPOLICY:
-        print(json.dumps(profile_onpolicy(label, args.num_envs, card)))
+        print(json.dumps(profile_onpolicy(label, n, card)))
+        return 0
+    if label in OWN:
+        print(json.dumps(profile_gail(n, card) if label == "gail_pendulum"
+                         else profile_cem(card)))
         return 0
 
-    n = args.num_envs
     record_cap = 10**6
     generator = torch.Generator(device="cuda").manual_seed(0)
     if label in MARL:
@@ -252,11 +434,13 @@ def main() -> int:
     else:
         env_name, algo_name, kwargs = CONFIGS[label]
         env = make(env_name, device="cuda")
-        if algo_name != "DQN":
+        cfg_cls = getattr(algos, algo_name + "Config")
+        if "num_envs" in cfg_cls.__dataclass_fields__:
             kwargs = dict(kwargs, num_envs=n)
-        algo = getattr(algos, algo_name)(
-            env.dim_info, getattr(algos, algo_name + "Config")(**kwargs),
-            device="cuda")
+        # a multi-objective env's algo takes its reward width
+        extra = (env.reward_dim,) if hasattr(env, "reward_dim") else ()
+        algo = getattr(algos, algo_name)(env.dim_info, *extra,
+                                         cfg_cls(**kwargs), device="cuda")
         driver = loop
         cfg = loop.OffPolicyConfig(num_envs=n, start_steps=500,
                                    chunk_size=64, max_episodes=10**9)
@@ -304,10 +488,15 @@ def main() -> int:
         out = timed("env_step", lambda: loop.vec_step_auto_reset(
             env, carry.env_state, (action + 1.0) / 2.0 if remap else action,
             generator, n))
-        timed("add", lambda: carry.buffer.add(loop.Transition(
+        trans = loop.Transition(
             obs=carry.obs, action=action, reward=out.reward,
             next_obs=out.next_obs, done=out.terminated,
-            episode_done=out.episode_done)))
+            episode_done=out.episode_done)
+        if hasattr(algo, "add_transition"):
+            timed("add", lambda: algo.add_transition(
+                carry.algo_state, carry.buffer, trans, generator))
+        else:
+            timed("add", lambda: carry.buffer.add(trans))
 
         timed("record", lambda: loop.record_episodes(
             env, carry, out.reward, out.episode_done, record_cap))

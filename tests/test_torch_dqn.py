@@ -143,7 +143,7 @@ def test_dense_init_is_torch_default():
 
 
 @pytest.mark.parametrize("trick", [
-    dict(obs_shape=(8, 8, 1)), dict(axis_name="data"),
+    dict(obs_shape=(8, 8, 1), axis_name="data"), dict(axis_name="data"),
 ], ids=lambda d: next(iter(d)))
 def test_unported_tricks_raise(trick):
     with pytest.raises(NotImplementedError, match="queue A"):

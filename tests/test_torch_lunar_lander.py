@@ -251,8 +251,8 @@ def test_make_registry():
     env = make("LunarLander-v2", device="cpu")
     assert env.dim_info.obs_dim == 8 and env.dim_info.action_dim == 4
     assert env.device == torch.device("cpu")
-    with pytest.raises(KeyError, match="queue A"):
-        make("deep-sea-treasure-v0", device="cpu")
+    with pytest.raises(KeyError, match="Unknown env"):
+        make("NoSuchEnv-v0", device="cpu")
 
 
 def test_vec_wrappers_are_seeded():

@@ -23,7 +23,6 @@ from freerl_tpu.envs import mpe as jax_mpe
 from freerl_tpu.envs.base import step_auto_reset as jax_step_auto_reset
 from freerl_tpu_torch.envs import make, step_auto_reset
 from freerl_tpu_torch.envs import masked, mpe
-from freerl_tpu_torch.envs import _PENDING
 
 torch.set_num_threads(1)
 
@@ -189,7 +188,6 @@ def test_adversary_padding_and_make():
     assert (obs[:, 1:, :2] != 0).all()
     for name in ("simple_spread_v3", "simple_adversary_v3", "simple_tag_v3",
                  "simple_world_comm_v3"):
-        assert name not in _PENDING
         assert make(name, device="cpu").name == name
     assert make("simple_world_comm_v3", device="cpu").agent_act_dims == (
         9, 5, 5, 5, 5, 5)

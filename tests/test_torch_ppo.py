@@ -169,6 +169,10 @@ def test_config_rules():
         PPOConfig(beta_dist=True, std_decay=True)
     with pytest.raises(NotImplementedError, match="slice 8"):
         PPO(DimInfo(**DI_C), PPOConfig(axis_name="data"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        PPO(DimInfo(**DI_C), PPOConfig(obs_shape=(8, 8, 1)), device="cpu")
+    state = PPO(DimInfo(obs_dim=64, action_dim=2, is_continue=True),
+                PPOConfig(obs_shape=(8, 8, 1), cnn_features=8),
+                device="cpu").init(torch.Generator().manual_seed(0))
+    assert state.actor.conv is not None
+    assert state.critic.conv is not None
+    assert state.critic.conv is not state.actor.conv
     assert not hasattr(PPOConfig(), "critic_lr")
