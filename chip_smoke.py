@@ -87,8 +87,9 @@ Phases (any failure raises, and the script exits non-zero):
     from identical params and draws: GAIL's ``train_d`` (vanilla, and
     WGAN-GP with LayerNorm) and ``compute_reward``; one CEM-GD3PG
     ``learn`` of each guidance branch and a P=10 ``eval_population`` on
-    Pendulum-v1; ENVELOPE's ``add_with_priority``, ``sample`` and
-    ``update`` and one ``EnvelopeDDPG`` learner step; a DQN update
+    Pendulum-v1 (its 200-step rollout teacher-forced); ENVELOPE's
+    ``add_with_priority``, ``sample`` and ``update`` and one
+    ``EnvelopeDDPG`` learner step; a DQN update
     through the 'small' and the 'nature' conv trunk; 200 teacher-forced
     auto-resetting steps of PixelCartPole-v1 and deep-sea-treasure-v0 at
     1024 envs;
@@ -104,25 +105,54 @@ Phases (any failure raises, and the script exits non-zero):
     config, 512 envs, 64 vector steps) and one ``train_onpolicy``
     iteration of a conv-trunk PPO (256 envs, T 16); returns in each env's
     range, and none of them launches the sum-tree kernel;
-19. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+19. slice 7 on the card against the CPU: the algo state of Rainbow DQN,
+    DDPG with PopArt and ObsNorm, TD3 (saved inside its delay phase), PPO
+    with every trick, MAPPO (stacked) and MATD3 at full width, after a few
+    updates, saved with ``save_checkpoint`` on the card, loaded on the CPU
+    (every tensor and host field bit for bit) and on the card, where one
+    more update of the live and of the restored state from identical
+    inputs and draws must stay bit-equal (``CHECKPOINT_CASES``); 100 steps
+    of ``HostSmacVecEnv(FakeSmacEnv, use_state=True)`` at 64 envs,
+    identical on the card and the CPU;
+20. the slice-7 paths through the user's entry points: ``cli.run`` (DQN
+    with PER on LunarLander-v2, 1024 envs, replay 1e6, batch 256, 2048
+    episodes, ``--save_freq 1024``; the run dir ``DQN_PER_1`` with
+    ``config.json``, the curve and ``checkpoint``), ``eval.score`` on that
+    run dir over 100 held-out episodes, and the checkpoint's size and its
+    save and load times; ``HostVecEnv`` around ``NumpyCartPole`` (no
+    gymnasium needed) with 0 and 2 worker processes under DQN through
+    ``train_offpolicy`` (the record equals the raw rewards' sums); masked
+    MAPPO with the state-augmented critic on ``fake-smac`` through
+    ``cli.build`` and ``train_onpolicy`` (no unavailable action reaches
+    the envs); ``utils.profiling.trace`` around 8 vector steps of the
+    main path (the Chrome trace holds CUDA kernel events);
+21. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
     simple_spread_v3), seed 0: the mean return of the last episodes must
     clear each recipe's threshold;
-20. print one JSON line describing each kernel (with its launches on the
+22. stop the processes the run started and that would outlive it (the
+    forkserver behind ``HostVecEnv``'s workers and multiprocessing's
+    resource tracker); any other child still running fails the run;
+23. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
-    on-policy, multi-agent and slice-6 paths), the card line, and the
-    result line.
+    on-policy, multi-agent, slice-6 and slice-7 paths), the card line, and
+    the result line.
 
-It needs no network and builds everything from the checkout.
+It needs no network, builds everything from the checkout, and leaves no
+process running when it exits, whether it passed or failed.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -137,12 +167,105 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def child_processes() -> dict[int, str]:
+    """The children of this process that still run (zombies left out):
+    pid -> command line."""
+    me, out = os.getpid(), {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(ppid) == me and state != "Z":
+            out[int(entry)] = cmd.strip()
+    return out
+
+
+def stop_children() -> dict[int, str]:
+    """Stop the helpers that multiprocessing starts and keeps until this
+    process has exited: the forkserver that ``HostVecEnv`` starts its
+    workers from, and the resource tracker. Each is asked to stop and is
+    reaped. Then kill and reap any other child still running, and return
+    those (pid -> command line): none is expected."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    left = child_processes()
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return left
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+class NumpyCartPole:
+    """gymnasium's CartPole-v1 in numpy, for ``HostVecEnv`` where
+    gymnasium is absent: its Euler dynamics on a float64 state, its
+    ``np_random`` reset (``default_rng(seed)``, U(+-0.05)), its 500-step
+    time limit, and spaces read by duck typing (an action space with
+    ``.n``, an observation space with ``.shape``)."""
+
+    gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+    force_mag, tau, x_threshold = 10.0, 0.02, 2.4
+    theta_threshold = 12 * 2 * np.pi / 360
+    max_episode_steps = 500
+
+    def __init__(self):
+        self.action_space = types.SimpleNamespace(n=2)
+        self.observation_space = types.SimpleNamespace(shape=(4,))
+        self.spec = types.SimpleNamespace(
+            id="NumpyCartPole-v1", reward_threshold=475.0,
+            max_episode_steps=self.max_episode_steps)
+        self._rng = np.random.default_rng()
+        self.state, self._t = None, 0
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(low=-0.05, high=0.05, size=(4,))
+        self._t = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        total_mass = self.masspole + self.masscart
+        polemass_length = self.masspole * self.length
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + polemass_length * np.square(theta_dot) * sintheta
+                ) / total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / total_mass))
+        xacc = temp - polemass_length * thetaacc * costheta / total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        self._t += 1
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold
+                          or theta > self.theta_threshold)
+        truncated = self._t >= self.max_episode_steps
+        return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                truncated, {})
 
 
 def build_tree(cap: int, seed: int = 0, spike_leaf: int | None = None,
@@ -2186,8 +2309,9 @@ def phase_card_vs_cpu_slice6():
     draws, at the configurations' widths: GAIL's ``train_d`` (vanilla; and
     WGAN-GP with LayerNorm) and ``compute_reward``; one CEM-GD3PG
     ``learn`` of each guidance branch and a P=10 ``eval_population`` on
-    Pendulum-v1; ENVELOPE's ``add_with_priority``, ``sample`` and
-    ``update``, and one ``EnvelopeDDPG`` learner step; a DQN update
+    Pendulum-v1 (its 200-step rollout teacher-forced); ENVELOPE's
+    ``add_with_priority``, ``sample`` and ``update``, and one
+    ``EnvelopeDDPG`` learner step; a DQN update
     through the 'small' and the 'nature' trunk; 200 teacher-forced
     auto-resetting steps of PixelCartPole-v1 and deep-sea-treasure-v0 at
     1024 envs."""
@@ -2195,6 +2319,7 @@ def phase_card_vs_cpu_slice6():
                                         CEMGD3PGConfig, DQNConfig, Envelope,
                                         EnvelopeConfig, EnvelopeDDPG,
                                         GAILConfig, PPOConfig)
+    from freerl_tpu_torch.algos.cem_gd3pg import RolloutDraws
     from freerl_tpu_torch.core.types import DimInfo, Transition
     from freerl_tpu_torch.envs import make, step_auto_reset, vec_reset
 
@@ -2259,16 +2384,44 @@ def phase_card_vs_cpu_slice6():
         1.0 + 0.3 * rng.randn(10, 1))
     draws = CEMDraws(torch.Generator().manual_seed(0)).population(
         env["cpu"], 10, env["cpu"].max_steps)
-    pop = {dev: pair[dev][0].eval_population(env[dev], flat,
-                                             to_device(draws, dev))
-           for dev in devs}
-    # 200 free-running steps: the returns within the tests' rtol 1e-5; the
-    # trajectories within it over the first 60 steps, as in the tests
-    # (the pendulum's swing-up amplifies rounding later on)
-    held("cem_eval_population_fitness_rel", pop["cpu"][0], pop["cuda"][0],
-         errs, rel=True)
-    held("cem_eval_population_obs_rel_60_steps", pop["cpu"][1].obs[:60],
-         pop["cuda"][1].obs[:60], errs, rel=True)
+    # The rollout behind ``eval_population``, teacher-forced over its 200
+    # steps: each card step starts from the CPU's carry before it, with the
+    # CPU's draws, and its transition and running return are held at the
+    # tests' rtol 1e-5. A free-running comparison cannot be held there: on
+    # the CPU alone, actors one float32 ulp apart (3e-8 relative) leave
+    # 1e-5 within 37-110 steps and their fitness can differ by 1.03e-5
+    # relative (scripts/cem_rollout_sensitivity.py, 4 seeds), and the
+    # card left a 60-step free-running window on 4-10 of 1800 elements
+    # (max 1.1e-5-1.6e-5) in two full calls.
+    flat_t = {dev: torch.as_tensor(flat, dtype=torch.float32, device=dev)
+              for dev in devs}
+    carry, steps = None, {dev: [] for dev in devs}
+    for t in range(len(draws.step)):
+        one = RolloutDraws(reset=draws.reset, step=draws.step[t:t + 1],
+                           step_reset=draws.step_reset[t:t + 1])
+        card = pair["cuda"][0].rollout(env["cuda"], flat_t["cuda"],
+                                       to_device(one, "cuda"),
+                                       carry=to_device(carry, "cuda"))
+        carry = cpu_algo.rollout(env["cpu"], flat_t["cpu"], one,
+                                 carry=carry)
+        for dev, c in (("cpu", carry), ("cuda", card)):
+            tr = c[2].trans
+            steps[dev].append(torch.cat(
+                [x.reshape(10, -1).float().cpu() for x in (
+                    tr.obs, tr.action, tr.reward, tr.next_obs, c[1],
+                    c[2].ret)], 1))
+    held("cem_rollout_teacher_forced_200_steps_rel",
+         torch.stack(steps["cpu"]), torch.stack(steps["cuda"]), errs,
+         rel=True)
+    # eval_population is that rollout: bit-equal to the stepped one on the
+    # CPU, and finite on the card
+    fitness, trans = cpu_algo.eval_population(env["cpu"], flat, draws)
+    card_fitness, _ = pair["cuda"][0].eval_population(
+        env["cuda"], flat, to_device(draws, "cuda"))
+    if (not torch.equal(fitness, carry[2].ret)
+            or not torch.equal(trans.obs[-1], carry[2].trans.obs[0])
+            or not bool(torch.isfinite(card_fitness).all())):
+        raise AssertionError("CEM-GD3PG eval_population is not its rollout")
 
     # ENVELOPE at its defaults (2x256, batch 256, weight_num 4, buffer
     # 100k) on deep-sea-treasure's widths: an add of 1024 rows with its
@@ -2329,7 +2482,14 @@ def phase_card_vs_cpu_slice6():
 
     # DQN through each conv trunk (pixel_curve's 'small' trunk on
     # PixelCartPole's 48x48x2 frames; the 'nature' trunk on 84x84x4): one
-    # update, batch 64, from the same params and batch
+    # update, batch 64, from the same params and batch. Its gradients are
+    # held; then the card's update runs again from the same params with
+    # the CPU's gradients in place of its own (a hook on each parameter),
+    # and the updated nets are held. Adam's first step is lr * g / (|g| +
+    # 1e-8), +-lr wherever a gradient is float noise, so two free steps
+    # put such weights up to 2 lr apart: the card's free update left 47
+    # and 497 weights past 1e-5 (max 0.0019995, 0.0019999 at lr 1e-3) in
+    # two full calls on the card, against 1-19 in earlier ones.
     for arch, shape, feats in (("small", (48, 48, 2), 128),
                                ("nature", (84, 84, 4), 512)):
         obs_dim = int(np.prod(shape))
@@ -2350,9 +2510,23 @@ def phase_card_vs_cpu_slice6():
         held(f"dqn_{arch}_forward", fwd["cpu"], fwd["cuda"], errs)
         for dev, (algo, st) in pair.items():
             algo.update(st, to_device(b, dev))
-        held(f"dqn_{arch}_update",
-             *[params_of(pair[d][1].net, pair[d][1].target_net)
-               for d in devs], errs, 1e-3)
+        grads = {d: torch.cat([p.grad.flatten().cpu()
+                               for p in pair[d][1].net.parameters()])
+                 for d in devs}
+        held(f"dqn_{arch}_grads", grads["cpu"], grads["cuda"], errs,
+             rel=True)
+        algo, st = twins(lambda dev: DQN(di, cfg, device=dev),
+                         ("net", "target_net"))["cuda"]
+        hooks = [p.register_hook(lambda _, g=g: g.to("cuda"))
+                 for p, g in zip(st.net.parameters(),
+                                 [p.grad for p in
+                                  pair["cpu"][1].net.parameters()])]
+        algo.update(st, to_device(b, "cuda"))
+        for h in hooks:
+            h.remove()
+        held(f"dqn_{arch}_update_cpu_grads",
+             params_of(pair["cpu"][1].net, pair["cpu"][1].target_net),
+             params_of(st.net, st.target_net), errs)
 
     # 200 auto-resetting steps of 1024 envs, the card from the CPU's state
     # and draws each step. deep-sea-treasure is integer arithmetic: exact.
@@ -2601,6 +2775,479 @@ def phase_pixel() -> int:
     return launches + p["launches"]
 
 
+# ---------------------------------------------------------------------------
+# slice 7: checkpoints, the CLI and eval, the host bridges, profiling
+
+class RawLog:
+    """An env proxy that keeps each vector step's RAW rewards and episode
+    ends (for ``expected_record``); everything else goes to the env."""
+
+    def __init__(self, env):
+        self.env, self.raw = env, []
+
+    def __getattr__(self, name):
+        if name == "env":                   # not set yet: no recursion
+            raise AttributeError(name)
+        return getattr(self.env, name)
+
+    def vec_step_auto_reset(self, *args):
+        out = self.env.vec_step_auto_reset(*args)
+        self.raw.append((out.reward, out.episode_done))
+        return out
+
+
+def cli_args(**kw):
+    """The training CLI's namespace: its defaults, overridden by ``kw``."""
+    from freerl_tpu_torch import cli
+
+    args = cli.parser().parse_args([])
+    vars(args).update(kw)
+    return args
+
+
+def random_rows(example, n: int, action_dim: int,
+                generator: torch.Generator):
+    """``n`` random rows in the layout of ``example`` (a Transition with
+    no batch dim, on the rows' device): floats U(-1, 1), integer actions
+    in [0, action_dim), flags true with p=0.1."""
+    from freerl_tpu_torch.core.types import Transition
+
+    def draw(x):
+        shape, dev = (n,) + tuple(x.shape), x.device
+        if x.dtype == torch.bool:
+            return torch.rand(shape, generator=generator, device=dev) < 0.1
+        if not x.dtype.is_floating_point:
+            return torch.randint(0, action_dim, shape, generator=generator,
+                                 device=dev, dtype=x.dtype)
+        return torch.rand(shape, generator=generator, device=dev) * 2 - 1
+
+    return Transition(**{f.name: draw(getattr(example, f.name))
+                         for f in dataclasses.fields(example)})
+
+
+def random_rollout(env, algo, t: int, n: int, generator: torch.Generator):
+    """A random (T, N[, A]) rollout in the env's layout (Beta actions in
+    (0, 1)); episodes end on about one step in ten."""
+    from freerl_tpu_torch.algos import Rollout
+
+    dev, di = env.device, env.dim_info
+    lead = (t, n) + ((env.n_agents,) if hasattr(env, "n_agents") else ())
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                           device=dev)
+
+    if not di.is_continue:
+        action = torch.randint(0, di.action_dim, lead, generator=generator,
+                               device=dev)
+    elif getattr(algo.cfg, "beta_dist", False):
+        action = u(lead + (di.action_dim,), 0.02, 0.98)
+    else:
+        action = u(lead + (di.action_dim,))
+    ends = u((t, n), 0.0, 1.0) < 0.1
+    return Rollout(obs=u(lead + (di.obs_dim,)), action=action,
+                   log_pi=u(lead, -2.0, -1.0), reward=u(lead),
+                   next_obs=u(lead + (di.obs_dim,)),
+                   done=ends & (u((t, n), 0.0, 1.0) < 0.7), adv_done=ends)
+
+
+# What ``card-vs-cpu slice 7`` checkpoints: the CLI's flags for the algo (its
+# config's full widths) and the updates the state takes before the save.
+# TD3 saves after an odd number: inside its delay phase.
+CHECKPOINT_CASES = {
+    "Rainbow DQN": (dict(algo="DQN", env_name="LunarLander-v2",
+                         trick=["Double", "Dueling", "PER", "Noisy",
+                                "N_Step", "Categorical"]), 3),
+    "DDPG PopArt ObsNorm": (dict(algo="DDPG",
+                                 env_name="LunarLanderContinuous-v2",
+                                 trick=["PopArt", "ObsNorm"]), 3),
+    "TD3": (dict(algo="TD3", env_name="LunarLanderContinuous-v2"), 3),
+    "PPO all tricks": (dict(algo="PPO", env_name="BipedalWalker-v3",
+                            trick=["adv_norm", "ObsNorm", "reward_scaling",
+                                   "lr_decay", "orthogonal_init",
+                                   "adam_eps", "tanh", "Beta"]), 2),
+    "MAPPO stacked": (dict(algo="MAPPO", env_name="simple_spread_v3"), 2),
+    "MATD3": (dict(algo="MATD3", env_name="simple_spread_v3"), 3),
+}
+CKPT_ENVS, CKPT_T = 16, 16      # replay adds / rollouts of 16 envs
+
+
+class CheckpointCase:
+    """One algo of ``CHECKPOINT_CASES`` on ``device``: its batch source (a
+    replay filled with random rows, or a random rollout) and ``update(state,
+    k)``, the state's k-th update from draws seeded with k. Updates also
+    feed random observations (and, on-policy, rewards) through the algo's
+    normalizers, so their statistics move too."""
+
+    def __init__(self, name: str, device: str):
+        from freerl_tpu_torch.cli import MARL_OFF, OFFPOLICY, build
+        from freerl_tpu_torch.train import loop, marl
+
+        flags, self.before = CHECKPOINT_CASES[name]
+        self.args = cli_args(**flags, device=device, num_envs=CKPT_ENVS,
+                             horizon=CKPT_ENVS * CKPT_T, buffer_size=1 << 14,
+                             batch_size=256)
+        self.env, self.algo = build(self.args)
+        self.device = device
+        g = self.generator(-1)
+        di = self.env.dim_info
+        self.offpolicy = flags["algo"] in OFFPOLICY | MARL_OFF
+        if self.offpolicy:
+            example = (marl.example_transition(self.env)
+                       if flags["algo"] in MARL_OFF
+                       else loop.example_transition(self.env, self.algo))
+            self.source = self.algo.make_buffer(example, num_envs=CKPT_ENVS)
+            for _ in range(64):
+                self.source = self.source.add(random_rows(
+                    example, CKPT_ENVS, di.action_dim, g))
+        else:
+            self.source = random_rollout(self.env, self.algo, CKPT_T,
+                                         CKPT_ENVS, g)
+
+    def generator(self, k: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(1000 + k)
+
+    def init(self, seed: int):
+        return self.algo.init(torch.Generator(
+            device=self.device).manual_seed(seed))
+
+    def update(self, state, k: int):
+        g = self.generator(k)
+        obs = (self.source.data.obs[:CKPT_ENVS] if self.offpolicy
+               else self.source.obs[k % CKPT_T])
+        noisy = obs + 0.1 * torch.randn(obs.shape, generator=g,
+                                        device=obs.device)
+        state, _, _ = self.algo.process_obs(state, noisy, noisy)
+        if self.offpolicy:
+            buffer = copy.deepcopy(self.source)
+            state, _, _ = self.algo.learn_step(state, buffer, g, CKPT_ENVS)
+            return state
+        reward = self.source.reward[k % CKPT_T]
+        state, _ = self.algo.process_reward(state, reward,
+                                            self.source.adv_done[k % CKPT_T])
+        roll = self.source
+        state, _ = self.algo.update(
+            state, roll, self.algo.draw_update(roll, g),
+            episodes=torch.tensor(37 + 29 * k, device=self.device))
+        return state
+
+
+def tree_diffs(a, b, path: str = "state") -> list:
+    """The paths where two checkpoint trees (``runio.state_tree``) differ:
+    tensors bit for bit (shape and dtype too), host values by ``==``."""
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [d for k in a for d in tree_diffs(a[k], b[k],
+                                                 f"{path}[{k!r}]")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_diffs(x, y, f"{path}[{i}]")]
+    return [] if a == b and type(a) is type(b) else [path]
+
+
+def checkpoint_roundtrip(name: str, device: str, path: str) -> dict:
+    """Save ``name``'s state after ``before`` updates on ``device``; load
+    it on the CPU (into a fresh CPU init, every tensor and host field bit
+    for bit) and on ``device`` (into a fresh init); then one more update
+    of the live and of the restored state from identical inputs and draws
+    must stay bit-equal. Returns the seconds and the file's bytes."""
+    from freerl_tpu_torch.train.runio import (load_checkpoint,
+                                              save_checkpoint, state_tree)
+
+    case = CheckpointCase(name, device)
+    live = case.init(0)
+    for k in range(case.before):
+        live = case.update(live, k)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.time()
+    save_checkpoint(path, live)
+    save_s = time.time() - t0
+    want = state_tree(live)
+    cpu = CheckpointCase(name, "cpu") if device != "cpu" else case
+    diffs = tree_diffs(want, state_tree(load_checkpoint(path, cpu.init(1))))
+    if diffs:
+        raise AssertionError(f"{name}: loaded on the CPU, {len(diffs)} "
+                             f"fields differ: {diffs[:5]}")
+    fresh = case.init(1)
+    moved = tree_diffs(want, state_tree(fresh))
+    if "state['step']" not in moved or len(moved) < 4:
+        raise AssertionError(f"{name}: the live state has not moved from a "
+                             f"fresh init ({moved})")
+    sync()
+    t0 = time.time()
+    restored = load_checkpoint(path, fresh)
+    sync()
+    load_s = time.time() - t0
+    if restored is not fresh or tree_diffs(want, state_tree(restored)):
+        raise AssertionError(f"{name}: not restored in place, bit for bit")
+    k = case.before
+    diffs = tree_diffs(state_tree(case.update(live, k)),
+                       state_tree(case.update(restored, k)))
+    if diffs:
+        raise AssertionError(f"{name}: the update after the load differs "
+                             f"in {len(diffs)} fields: {diffs[:5]}")
+    return dict(save_s=save_s, load_s=load_s, bytes=os.path.getsize(path),
+                updates=case.before + 1)
+
+
+def phase_card_vs_cpu_slice7():
+    """Checkpoints of six algos saved on the card, loaded on the CPU and
+    on the card, and continued there bit-exact (``checkpoint_roundtrip``);
+    then ``HostSmacVecEnv(FakeSmacEnv, use_state=True)`` stepped on the card
+    and on the CPU from one seed and one action sequence: identical
+    tensors."""
+    import tempfile
+
+    from freerl_tpu_torch.envs.host import HostEnvState
+    from freerl_tpu_torch.envs.smac import FakeSmacEnv, HostSmacVecEnv
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, name in enumerate(CHECKPOINT_CASES):
+            out[name] = checkpoint_roundtrip(name, "cuda",
+                                             os.path.join(tmp, f"c{i}"))
+    envs = {dev: HostSmacVecEnv(FakeSmacEnv, 64, use_state=True, device=dev)
+            for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    obs = {dev: e._tensor(e._host_reset(1234)) for dev, e in envs.items()}
+    flags = 0
+    for t in range(100):
+        if not torch.equal(obs["cpu"], obs["cuda"].cpu()):
+            raise AssertionError(f"HostSmacVecEnv: obs differ at step {t}")
+        action = torch.from_numpy(rng.integers(0, 5, (64, 3)))
+        outs = {dev: e.vec_step_auto_reset(HostEnvState(t), action.to(dev),
+                                           None, 64)
+                for dev, e in envs.items()}
+        for f in ("next_obs", "carry_obs", "reward", "terminated",
+                  "truncated"):
+            if not torch.equal(getattr(outs["cpu"], f),
+                               getattr(outs["cuda"], f).cpu()):
+                raise AssertionError(f"HostSmacVecEnv: {f} differs")
+        flags += int(outs["cpu"].terminated.sum())
+        obs = {dev: o.carry_obs for dev, o in outs.items()}
+    log(f"[card-vs-cpu slice 7] checkpoints saved on the card, loaded on "
+        f"the CPU and the card, one more update bit-equal: "
+        + "; ".join(f"{n} {r['bytes']} B, save {r['save_s'] * 1e3:.1f} ms, "
+                    f"load {r['load_s'] * 1e3:.1f} ms"
+                    for n, r in out.items())
+        + f"; HostSmacVecEnv use_state 100 steps x 64 card == CPU "
+          f"({flags} episode ends)")
+
+
+# A LunarLander return: a crash ends at -100 plus the shaping terms (an
+# untrained lander rarely leaves [-1000, 0]), a landing scores at most ~320.
+LUNAR_RETURNS = (-2000.0, 400.0)
+
+
+def phase_cli() -> int:
+    """The user's entry points on the card: ``cli.run`` trains DQN with PER
+    (the CLI's cumsum sampler) on LunarLander-v2 at full width, 1024 envs,
+    replay 1e6, batch 256, to 2048 episodes with a checkpoint every 1024;
+    the run dir must be ``DQN_PER_1`` with ``config.json``, the curve and
+    ``checkpoint``. Then ``eval.score`` on that run dir alone, 100 held-out
+    episodes on the card; and the checkpoint's size and its save and load
+    times."""
+    import contextlib
+    import io
+    import tempfile
+
+    from freerl_tpu_torch import cli
+    from freerl_tpu_torch import eval as port_eval
+    from freerl_tpu_torch.train.runio import load_checkpoint, save_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--algo", "DQN", "--env_name", "LunarLander-v2", "--trick",
+                "PER", "--num_envs", "1024", "--buffer_size", "1000000",
+                "--batch_size", "256", "--max_episodes", "2048",
+                "--no_tensorboard", "--save_freq", "1024",
+                "--results_root", tmp]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            model_dir, launches, train_s = sumtree_count(
+                lambda: cli.run(argv))
+        for line in printed.getvalue().splitlines():
+            log(f"  cli | {line}")
+        summary = next(line for line in printed.getvalue().splitlines()
+                       if line.startswith("episodes: "))
+        stats = dict(kv.split(": ") for kv in summary.split("  "))
+        if (os.path.basename(model_dir) != "DQN_PER_1" or not {
+                "config.json", "DQN_seed_0.npy", "checkpoint"} <= set(
+                    os.listdir(model_dir))):
+            raise AssertionError(f"cli: run dir {os.listdir(model_dir)}")
+        config = json.load(open(os.path.join(model_dir, "config.json")))
+        curve = np.load(os.path.join(model_dir, "DQN_seed_0.npy"))
+        if (config["device"] != "cuda" or len(curve) != 2048
+                or not np.isfinite(curve).all()
+                or not LUNAR_RETURNS[0] <= curve.min() <= curve.max()
+                <= LUNAR_RETURNS[1]):
+            raise AssertionError(f"cli: config {config}, curve "
+                                 f"{len(curve)} episodes, {curve.min()} .. "
+                                 f"{curve.max()}")
+        if launches:
+            raise AssertionError(f"cli: {launches} sum-tree launches")
+
+        args = port_eval.parse(["--model_dir", model_dir, "--n_episodes",
+                                "100", "--seed0", "1"])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        returns = port_eval.score(args)
+        eval_s = time.time() - t0
+        if (args.device != "cuda" or returns.shape != (100,)
+                or not np.isfinite(returns).all()
+                or not LUNAR_RETURNS[0] <= returns.min() <= returns.max()
+                <= LUNAR_RETURNS[1]):
+            raise AssertionError(f"eval: {returns}")
+
+        path = os.path.join(model_dir, "checkpoint")
+        _, algo = cli.build(args)
+        state = algo.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        load_checkpoint(path, state)
+        torch.cuda.synchronize()
+        load_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        save_checkpoint(os.path.join(tmp, "again"), state)
+        save_ms = (time.time() - t0) * 1e3
+        size = os.path.getsize(path)
+    log(f"[cli] DQN PER LunarLander-v2 1024 envs: run dir DQN_PER_1 with "
+        f"config.json, curve, checkpoint; {stats['episodes']} episodes, "
+        f"{stats['env_steps']} env steps, {stats['steps/s']} env-steps/s "
+        f"(the loop's), cli.run {train_s:.2f} s; eval.score 100 held-out "
+        f"episodes on the card in {eval_s:.2f} s: mean {returns.mean():.1f} "
+        f"({returns.min():.1f} .. {returns.max():.1f}); checkpoint {size} B, "
+        f"save {save_ms:.2f} ms, load {load_ms:.2f} ms; sumtree launches "
+        f"{launches}")
+    return launches
+
+
+def phase_host() -> int:
+    """``HostVecEnv`` around ``NumpyCartPole`` (gymnasium's CartPole-v1 in
+    numpy with duck-typed spaces: the card's machine may lack gymnasium),
+    64 envs, in process and over 2 worker processes; DQN (full width,
+    batch 256) through ``train_offpolicy``, 2 chunks of 64 vector steps.
+    The learner steps once per vector step after ``start_steps``, and the
+    record equals the raw rewards' sums."""
+    from chip_smoke import NumpyCartPole    # by module path, for the pickle
+    from freerl_tpu_torch.algos import DQN, DQNConfig
+    from freerl_tpu_torch.envs.host import HostVecEnv
+    from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy
+
+    n, chunk = 64, 64
+    cfg = OffPolicyConfig(num_envs=n, chunk_size=chunk, start_steps=1024,
+                          max_env_steps=n * chunk * 2, max_episodes=10**9)
+    rates = {}
+    for workers in (0, 2):
+        env = RawLog(HostVecEnv(NumpyCartPole, num_envs=n,
+                                num_workers=workers, device="cuda"))
+        algo = DQN(env.dim_info, DQNConfig(buffer_size=100_000,
+                                           batch_size=256), device="cuda")
+        try:
+            (_, returns, info), launches, _ = sumtree_count(
+                lambda: train_offpolicy(env, algo, cfg))
+        finally:
+            env.close()
+        steps = info["env_steps"] // n
+        want_updates = sum(1 for t in range(1, steps + 1)
+                           if t * n > cfg.start_steps)
+        if (info["updates"] != want_updates or launches
+                or not np.array_equal(returns, expected_record(env.raw))
+                or not len(returns) or not np.isfinite(returns).all()):
+            raise AssertionError(f"host ({workers} workers): {info}, "
+                                 f"{launches} sum-tree launches, record "
+                                 f"{len(returns)}")
+        if workers and any(p.is_alive() for p in env._procs):
+            raise AssertionError("host: a worker outlived close()")
+        rates[workers] = info["env_steps_per_s"]
+        log(f"[host {workers} workers] NumpyCartPole x {n}: {steps} vector "
+            f"steps, {info['updates']} learner steps, {info['episodes']} "
+            f"episodes (record == raw sums, returns {returns.min():.0f} .. "
+            f"{returns.max():.0f}) in {info['elapsed_s']:.2f} s: "
+            f"{info['env_steps_per_s']:.0f} env-steps/s")
+    return 0
+
+
+def phase_smac() -> int:
+    """``cli.build`` for ``--algo MAPPO --env_name fake-smac --use_state``
+    on the card (masked MAPPO with the state-augmented critic over
+    ``HostSmacVecEnv``), then ``train_onpolicy`` for 2 iterations (4 envs,
+    horizon 100): no unavailable action reaches the envs."""
+    from freerl_tpu_torch import cli
+    from freerl_tpu_torch.train import OnPolicyConfig, train_onpolicy
+
+    args = cli_args(algo="MAPPO", env_name="fake-smac", use_state=True,
+                    num_envs=4, horizon=100, device="cuda")
+    env, algo = cli.build(args)
+    cfg = OnPolicyConfig(num_envs=4, horizon=100, max_env_steps=200,
+                         max_episodes=10**9)
+    (state, returns, info), launches, secs = sumtree_count(
+        lambda: train_onpolicy(env, algo, cfg))
+    if (info["iterations"] != 2 or state.step != 2 or launches
+            or env.invalid_actions_received
+            or not algo.cfg.masked or algo.cfg.state_dim != env.state_dim
+            or returns.shape != (info["episodes"], 3)
+            or not np.isfinite(returns).all()):
+        raise AssertionError(f"smac: {info}, step {state.step}, "
+                             f"{env.invalid_actions_received} invalid "
+                             f"actions, {launches} sum-tree launches")
+    log(f"[smac] MAPPO masked + state (state_dim {env.state_dim}) on "
+        f"fake-smac x 4: {info['iterations']} iterations, "
+        f"{info['episodes']} episodes (team returns {returns[:, 0].min()} "
+        f".. {returns[:, 0].max()}), 0 invalid actions, {secs:.2f} s")
+    return launches
+
+
+def phase_profiling() -> int:
+    """``utils.profiling.trace`` around 8 vector steps of the main path
+    (DQN with PER on the tree sampler, LunarLander-v2, 1024 envs, full
+    width, a learner step on every vector step), after one untraced
+    warm-up run: the Chrome trace it exports must hold CUDA kernel
+    events."""
+    import tempfile
+
+    from freerl_tpu_torch.algos import DQN, DQNConfig
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy
+    from freerl_tpu_torch.utils import trace
+
+    n = 1024
+    env = make("LunarLander-v2", device="cuda")
+    algo = DQN(env.dim_info, DQNConfig(buffer_size=1_000_000,
+                                       batch_size=256, per=True,
+                                       per_sampler="tree"), device="cuda")
+    cfg = OffPolicyConfig(num_envs=n, chunk_size=8, start_steps=0,
+                          max_env_steps=8 * n, max_episodes=10**9)
+    train_offpolicy(env, algo, cfg)              # warm-up, untraced
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device="cuda"):
+            (_, _, info), launches, secs = sumtree_count(
+                lambda: train_offpolicy(env, algo, cfg))
+        path = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(path)
+        events = json.load(open(path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b1 = [e for e in kernels if "sumtree" in e.get("name", "")]
+    busy_us = sum(e.get("dur", 0) for e in kernels)
+    if not kernels or info["updates"] != 8 or launches != 8:
+        raise AssertionError(f"profiling: {len(kernels)} kernel events, "
+                             f"{info['updates']} learner steps, {launches} "
+                             f"sum-tree launches")
+    log(f"[profiling] trace() around 8 vector steps of the main path: "
+        f"{size} B Chrome trace, {len(events)} events, {len(kernels)} CUDA "
+        f"kernels ({len(kernels) / 8:.1f} per vector step, {busy_us:.0f} us "
+        f"of kernel time in {secs * 1e3:.1f} ms traced), sum-tree kernel "
+        f"events {len(b1)} for {launches} launches")
+    return launches
+
+
 # The learning checks, one recipe each: the env, the algo, its config's and
 # the loop config's fields (the off-policy loop unless ``driver`` says
 # "onpolicy" or "marl"), the episodes read at each end, and the threshold
@@ -2781,11 +3428,21 @@ def main() -> int:
     if kernel["launches_slice6"]:
         raise AssertionError(f"the slice-6 paths launched the sum-tree "
                              f"kernel {kernel['launches_slice6']} times")
+    timed("card-vs-cpu slice 7", phase_card_vs_cpu_slice7)
+    # 0 on the CLI, host and SMAC paths; 8 for the 8 traced main-path steps
+    kernel["launches_slice7"] = sum(
+        timed(name, fn) for name, fn in (
+            ("cli", phase_cli), ("host", phase_host), ("smac", phase_smac),
+            ("profiling", phase_profiling)))
     for name in LEARNING_CHECKS:
         launches = timed(f"learning {name}", phase_learning, name)
         driver = LEARNING_CHECKS[name].get("driver")
         if driver in ("onpolicy", "marl"):
             kernel[f"launches_{driver}"] += launches
+    left = stop_children()
+    if left:
+        raise AssertionError(f"processes still running after the phases, "
+                             f"killed: {left}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [kernel]}))
@@ -2799,4 +3456,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:    # a failed phase must not leave its processes behind either
+        stop_children()
+    sys.exit(code)

@@ -124,14 +124,24 @@ def step_auto_reset(env: Env, state, action, step_draw,
 
 
 def vec_reset(env: Env, generator: torch.Generator, num_envs: int):
-    """Reset a batch of ``num_envs`` independent instances."""
+    """Reset a batch of ``num_envs`` independent instances.
+
+    Host-bridged envs (``envs/host.py``, ``envs/smac.py``) provide their own
+    vectorized protocol, ``env.vec_reset(generator, num_envs)``, and are
+    handed off to it."""
+    if hasattr(env, "vec_reset"):
+        return env.vec_reset(generator, num_envs)
     return env.reset(env.draw_reset(num_envs, generator))
 
 
 def vec_step_auto_reset(env: Env, state, action, generator: torch.Generator,
                         num_envs: int) -> StepOut:
     """Auto-resetting step of the whole batch, with its draws made from
-    ``generator``."""
+    ``generator`` (a host-bridged env's own
+    ``env.vec_step_auto_reset(state, action, generator, num_envs)`` where
+    it has one)."""
+    if hasattr(env, "vec_step_auto_reset"):
+        return env.vec_step_auto_reset(state, action, generator, num_envs)
     step_draw = env.draw_step(num_envs, generator)
     reset_draw = env.draw_reset(num_envs, generator)
     return step_auto_reset(env, state, action, step_draw, reset_draw)

@@ -26,6 +26,7 @@ from freerl_tpu_torch.algos.base import ExploreCtx
 from freerl_tpu_torch.core.types import Transition
 from freerl_tpu_torch.envs.base import (Env, record_scalarize, row_mask,
                                         vec_reset, vec_step_auto_reset)
+from freerl_tpu_torch.train.runio import save_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +41,7 @@ class OffPolicyConfig:
     updates_per_burst: int = 1           # gradient updates per burst
     chunk_size: int = 256                # vector steps between host checks
     log_every_chunks: int = 8
-    # periodic checkpointing waits for the port of train/runio.py
+    # save the algo state to f"{checkpoint_dir}/ckpt" every N chunks
     checkpoint_dir: Optional[str] = None
     checkpoint_every_chunks: int = 0
     # read the episode counter back from the device every N chunks; the
@@ -169,11 +170,6 @@ def train_offpolicy(env: Env, algo, cfg: OffPolicyConfig,
 
     Returns ``(algo_state, episode_returns ndarray, info dict)``.
     """
-    if cfg.checkpoint_dir and cfg.checkpoint_every_chunks:
-        raise NotImplementedError(
-            "checkpointing waits for the port of train/runio.py "
-            "(ROADMAP.md queue A, slice 7)"
-        )
     num_envs = cfg.num_envs
     device = env.device
     # an episode costs >=1 env step, so the record never needs more slots
@@ -213,6 +209,9 @@ def train_offpolicy(env: Env, algo, cfg: OffPolicyConfig,
             n_eps = int(carry.ep_counter)
         if on_chunk is not None and chunk_i % cfg.log_every_chunks == 0:
             on_chunk(chunk_i, n_eps, n_steps, carry)
+        if (cfg.checkpoint_dir and cfg.checkpoint_every_chunks
+                and chunk_i % cfg.checkpoint_every_chunks == 0):
+            save_checkpoint(f"{cfg.checkpoint_dir}/ckpt", carry.algo_state)
         if n_eps >= cfg.max_episodes or n_steps >= cfg.max_env_steps:
             break
 

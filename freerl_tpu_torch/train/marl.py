@@ -26,6 +26,7 @@ from freerl_tpu_torch.algos.base import ExploreCtx
 from freerl_tpu_torch.core.types import Transition
 from freerl_tpu_torch.envs.base import Env, vec_reset, vec_step_auto_reset
 from freerl_tpu_torch.train.loop import LoopCarry, record_episodes
+from freerl_tpu_torch.train.runio import save_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +40,7 @@ class MARLConfig:
     updates_per_burst: int = 1
     chunk_size: int = 128
     log_every_chunks: int = 8
-    # periodic checkpointing waits for the port of train/runio.py
+    # save the algo state to f"{checkpoint_dir}/ckpt" every N chunks
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
     # read the episode counter back from the device every N chunks; the
@@ -130,10 +131,6 @@ def train_marl(env: Env, algo, cfg: MARLConfig,
         raise NotImplementedError(
             "data-parallel training (mesh) comes with the distributed slice "
             "(ROADMAP.md queue A, slice 8, item 23)")
-    if cfg.checkpoint_dir and cfg.checkpoint_every:
-        raise NotImplementedError(
-            "checkpointing waits for the port of train/runio.py "
-            "(ROADMAP.md queue A, slice 7, item 21)")
     num_envs = cfg.num_envs
     # an episode costs >=1 env step, so the record never needs more slots
     # than the step budget plus the final chunk's overshoot
@@ -159,6 +156,9 @@ def train_marl(env: Env, algo, cfg: MARLConfig,
             n_eps = int(c.ep_counter)
         if on_chunk is not None and chunk_i % cfg.log_every_chunks == 0:
             on_chunk(chunk_i, n_eps, n_steps, c)
+        if (cfg.checkpoint_dir and cfg.checkpoint_every
+                and chunk_i % cfg.checkpoint_every == 0):
+            save_checkpoint(f"{cfg.checkpoint_dir}/ckpt", c.algo_state)
         if n_eps >= cfg.max_episodes or n_steps >= cfg.max_env_steps:
             break
 

@@ -33,6 +33,7 @@ import torch
 from freerl_tpu_torch.algos.ppo import Rollout
 from freerl_tpu_torch.envs.base import Env, vec_reset, vec_step_auto_reset
 from freerl_tpu_torch.train.loop import record_episodes
+from freerl_tpu_torch.train.runio import save_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +46,7 @@ class OnPolicyConfig:
     log_every_iters: int = 10
     # rollout+update iterations between host checks
     iters_per_dispatch: int = 1
-    # periodic checkpointing waits for the port of train/runio.py
+    # save the algo state to f"{checkpoint_dir}/ckpt" every N iterations
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
     # read the episode counter back from the device every N iterations;
@@ -75,10 +76,6 @@ def _check_supported(cfg: OnPolicyConfig, mesh) -> None:
         raise NotImplementedError(
             "data-parallel training (mesh) comes with the distributed slice "
             "(ROADMAP.md queue A, slice 8)")
-    if cfg.checkpoint_dir and cfg.checkpoint_every:
-        raise NotImplementedError(
-            "checkpointing waits for the port of train/runio.py "
-            "(ROADMAP.md queue A, slice 7)")
 
 
 def _write(store, t: int, T: int, step: dict, make=Rollout):
@@ -213,6 +210,8 @@ def train_onpolicy(env: Env, algo, cfg: OnPolicyConfig,
             n_eps = int(c.ep_counter)
         if on_iter is not None and hit(cfg.log_every_iters):
             on_iter(it, n_eps, n_steps, c, metrics)
+        if cfg.checkpoint_dir and hit(cfg.checkpoint_every):
+            save_checkpoint(f"{cfg.checkpoint_dir}/ckpt", c.algo_state)
         if n_eps >= cfg.max_episodes or n_steps >= cfg.max_env_steps:
             break
 

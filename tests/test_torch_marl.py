@@ -139,11 +139,23 @@ def test_train_marl_maac_on_masked_spread():
     assert state.step == info["updates"]
 
 
-def test_train_marl_refuses_what_it_does_not_take_yet():
+def test_train_marl_refuses_what_it_does_not_take_yet(tmp_path):
+    """``mesh`` waits for the distributed slice; ``checkpoint_dir`` (since
+    slice 7) writes the algo state every ``checkpoint_every`` chunks."""
+    from freerl_tpu_torch.train.runio import load_checkpoint
+
     env = mpe.SimpleSpread(N=2, device="cpu")
-    algo = MADDPG(env, device="cpu")
+    algo = MADDPG(env, MADDPGConfig(buffer_size=256, batch_size=8,
+                                    hidden=(8,)), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 8, item 23"):
         train_marl(env, algo, MARLConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 7, item 21"):
-        train_marl(env, algo, MARLConfig(checkpoint_dir="x",
-                                         checkpoint_every=1))
+    cfg = MARLConfig(num_envs=2, chunk_size=5, max_env_steps=20,
+                     max_episodes=10**6, start_steps=4,
+                     checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    state, _, info = train_marl(env, algo, cfg)
+    restored = load_checkpoint(tmp_path / "ckpt",
+                               algo.init(torch.Generator().manual_seed(9)))
+    assert restored.step == state.step == info["updates"] > 0
+    for a, b in zip(restored.actors, state.actors):
+        for x, y in zip(a.parameters(), b.parameters()):
+            assert torch.equal(x, y)

@@ -174,11 +174,22 @@ def test_iteration_cadence_and_reinforce_drive():
     assert state.step == 6 and len(returns) == info["episodes"]
 
 
-def test_driver_refuses_what_it_does_not_take_yet():
+def test_driver_refuses_what_it_does_not_take_yet(tmp_path):
+    """``mesh`` waits for the distributed slice; ``checkpoint_dir`` (since
+    slice 7) writes the algo state every ``checkpoint_every``
+    iterations."""
+    from freerl_tpu_torch.train.runio import load_checkpoint
+
     env = make("CartPole-v1", device="cpu")
-    algo = PPO(env.dim_info, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train_onpolicy(env, algo, OnPolicyConfig(checkpoint_dir="x",
-                                                 checkpoint_every=1))
+    algo = PPO(env.dim_info, PPOConfig(hidden=(8,), horizon=32, num_envs=4,
+                                       K_epochs=1, minibatch_size=16),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="slice 8"):
         train_onpolicy(env, algo, OnPolicyConfig(), mesh=object())
+    cfg = OnPolicyConfig(num_envs=4, horizon=32, max_env_steps=96,
+                         max_episodes=10**6, checkpoint_dir=str(tmp_path),
+                         checkpoint_every=2)
+    state, _, info = train_onpolicy(env, algo, cfg)
+    restored = load_checkpoint(tmp_path / "ckpt",
+                               algo.init(torch.Generator().manual_seed(9)))
+    assert info["iterations"] == 3 and restored.step == 2 == state.step - 1

@@ -179,12 +179,25 @@ def test_train_offpolicy_stops_on_episodes():
     assert info["updates"] == 0
 
 
-def test_train_offpolicy_checkpointing_not_ported():
+def test_train_offpolicy_checkpointing_not_ported(tmp_path):
+    """Checkpointing came with slice 7: ``checkpoint_dir`` writes the algo
+    state every ``checkpoint_every_chunks`` chunks, and it loads into a
+    fresh ``init`` bit for bit."""
+    from freerl_tpu_torch.train.runio import load_checkpoint
+
     env = make("LunarLander-v2", device="cpu")
-    algo = DQN(env.dim_info, DQNConfig(buffer_size=64), device="cpu")
-    cfg = OffPolicyConfig(checkpoint_dir="ckpt", checkpoint_every_chunks=1)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train_offpolicy(env, algo, cfg)
+    algo = DQN(env.dim_info, DQNConfig(buffer_size=64, batch_size=8,
+                                       hidden=(8,)), device="cpu")
+    cfg = OffPolicyConfig(num_envs=4, chunk_size=8, max_env_steps=64,
+                          max_episodes=10**6, start_steps=16,
+                          checkpoint_dir=str(tmp_path),
+                          checkpoint_every_chunks=1)
+    state, _, info = train_offpolicy(env, algo, cfg)
+    restored = load_checkpoint(tmp_path / "ckpt",
+                               algo.init(torch.Generator().manual_seed(9)))
+    assert restored.step == state.step == info["updates"] > 0
+    for x, y in zip(restored.net.parameters(), state.net.parameters()):
+        assert torch.equal(x, y)
 
 
 def test_record_episodes_is_chronological_and_drops_past_cap():
