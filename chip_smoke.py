@@ -126,17 +126,35 @@ Phases (any failure raises, and the script exits non-zero):
     ``cli.build`` and ``train_onpolicy`` (no unavailable action reaches
     the envs); ``utils.profiling.trace`` around 8 vector steps of the
     main path (the Chrome trace holds CUDA kernel events);
-21. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
+21. slice 8, data-parallel training on ``torch.distributed``: two ranks
+    spawned on the one card (gloo; NCCL takes one card per rank), each
+    with half of the envs: the main path (DQN + PER tree on LunarLander-v2
+    at full width, 1024 envs in all, replay 1e6 and PER 2^20 per rank,
+    batch 256 per rank, 128 vector steps) through ``train_offpolicy(mesh=)``,
+    MADDPG on simple_spread_v3 through ``train_marl(mesh=)`` and PPO with
+    obs_norm, reward_scaling and adv_norm on CartPole-v1 through
+    ``train_onpolicy(mesh=)``; every replicated tensor (nets, Adam,
+    normalizer stats) bit-equal across the ranks, B1 once per learner step
+    on each rank of the main path and never on the others, the merged
+    record equal to the ranks' raw rewards merged by (step, rank), the
+    gradient all-reduce timed; then, in the same ranks, one sharded update
+    of DQN (PER weights), PPO and MADDPG on the card against the same on
+    the CPU's gloo group, from the same params and per-rank batches;
+22. a one-rank NCCL group in this process: DQN updates with ``axis_name``
+    bit-equal to the same updates with no mesh;
+23. ``golden.regenerate`` on a 25-episode CartPole recipe on the card,
+    into a temporary directory;
+24. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
     simple_spread_v3), seed 0: the mean return of the last episodes must
     clear each recipe's threshold;
-22. stop the processes the run started and that would outlive it (the
+25. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
-23. print one JSON line describing each kernel (with its launches on the
+26. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
-    on-policy, multi-agent, slice-6 and slice-7 paths), the card line, and
-    the result line.
+    on-policy, multi-agent, slice-6, slice-7 and data-parallel paths), the
+    card line, and the result line.
 
 It needs no network, builds everything from the checkout, and leaves no
 process running when it exits, whether it passed or failed.
@@ -1444,19 +1462,25 @@ def onpolicy_probe(algo_cls):
     return Probe
 
 
-def expected_record(raw: list) -> np.ndarray:
-    """The episode record the loop should write from the RAW rewards:
-    each env's float32 running sum (each agent's, for (N, A) rewards),
-    recorded where its episode ends, in the order episodes end (env order
-    within a step)."""
+def record_steps(raw: list) -> list:
+    """Per vector step, the returns of the episodes that ended in it (env
+    order), from the RAW rewards: each env's float32 running sum (each
+    agent's, for (N, A) rewards)."""
     run, out = None, []
     for reward, done in raw:
         reward, done = reward.cpu(), done.cpu()
         run = reward.clone() if run is None else run + reward
-        out.append(run[done])
+        out.append(run[done].numpy())
         run = torch.where(done.reshape(done.shape + (1,) * (run.dim() - 1)),
                           0.0, run)
-    return torch.cat(out).numpy()
+    return out
+
+
+def expected_record(raw: list) -> np.ndarray:
+    """The episode record the loop should write from the RAW rewards,
+    recorded where each episode ends, in the order episodes end (env order
+    within a step)."""
+    return np.concatenate(record_steps(raw))
 
 
 def drive_onpolicy(env_name: str, algo_name: str, algo_cfg, loop_cfg,
@@ -3375,6 +3399,420 @@ def phase_learning(name: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# slice 8: data-parallel training on torch.distributed
+# ---------------------------------------------------------------------------
+DP_RANKS = 2
+
+
+class DeviceRawLog(RawLog):
+    """``RawLog`` around an env that steps on the device."""
+
+    def vec_step_auto_reset(self, state, action, generator, num_envs):
+        from freerl_tpu_torch.envs.base import vec_step_auto_reset
+
+        out = vec_step_auto_reset(self.env, state, action, generator,
+                                  num_envs)
+        self.raw.append((out.reward, out.episode_done))
+        return out
+
+
+def replicated_flat(state) -> torch.Tensor:
+    """Every float tensor of an algo state that the ranks keep alike (nets,
+    targets, Adam moments, normalizer stats), flat on the CPU; the per-env
+    leaves, one slice per rank, are left out."""
+    from freerl_tpu_torch.distributed.dp import (_get, per_env_paths,
+                                                 state_tensors)
+
+    per_env = {id(_get(state, p)) for p in per_env_paths(state)}
+    return torch.cat([t.detach().reshape(-1).cpu()
+                      for t in state_tensors(state)
+                      if t.is_floating_point() and id(t) not in per_env])
+
+
+def dp_run(run, algo) -> dict:
+    """``run()`` (a driver with ``mesh=``) with the sum-tree kernel's count
+    set to 0 just before and read just after."""
+    from freerl_tpu_torch.ops import sumtree
+
+    torch.cuda.synchronize()
+    sumtree.launches = 0
+    t0 = time.time()
+    state, returns, info = run()
+    launches = sumtree.launches
+    torch.cuda.synchronize()
+    check_metrics("dp", algo)
+    if not np.isfinite(returns).all():
+        raise AssertionError("dp: non-finite episode return")
+    return dict(state=state, returns=returns, info=info, launches=launches,
+                flat=replicated_flat(state), seconds=time.time() - t0)
+
+
+def dp_paths(mesh) -> dict:
+    """The three data-parallel paths on this rank: the main path (DQN +
+    PER (tree) on LunarLander-v2 at full width: 1024 envs in all, replay
+    1e6 and PER 2^20 per rank, batch 256 per rank, 128 vector steps through
+    ``train_offpolicy(mesh=)``), MADDPG on simple_spread_v3 (defaults, 256
+    envs, 50 vector steps, ``train_marl(mesh=)``) and PPO on CartPole-v1
+    with obs_norm, reward_scaling and adv_norm (1024 envs, T 16, two
+    iterations, ``train_onpolicy(mesh=)``)."""
+    from freerl_tpu_torch.algos import (DQN, MADDPG, PPO, DQNConfig,
+                                        MADDPGConfig, PPOConfig)
+    from freerl_tpu_torch.distributed.dp import pmean
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import (MARLConfig, OffPolicyConfig,
+                                        OnPolicyConfig, train_marl,
+                                        train_offpolicy, train_onpolicy)
+
+    dev, out = mesh.device, {}
+    env = DeviceRawLog(make("LunarLander-v2", device=dev))
+    algo = probe(DQN)(env.dim_info, DQNConfig(
+        buffer_size=1_000_000, batch_size=256, hidden=(128,), per=True,
+        per_sampler="tree", axis_name="dp"), device=dev)
+    cfg = OffPolicyConfig(seed=0, num_envs=1024, start_steps=500,
+                          chunk_size=64, max_env_steps=1024 * 128,
+                          max_episodes=10**9)
+    r = dp_run(lambda: train_offpolicy(env, algo, cfg, mesh=mesh), algo)
+    if r["launches"] != r["info"]["updates"] or not r["launches"]:
+        raise AssertionError(f"dp: sumtree kernel launched {r['launches']} "
+                             f"times for {r['info']['updates']} learner "
+                             f"steps on rank {mesh.rank}")
+    # the learner step's gradient all-reduce alone (8-128-4: 1,668 floats)
+    grads = [p.detach().clone() for p in r["state"].net.parameters()]
+    for _ in range(10):
+        pmean(grads, "dp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        pmean(grads, "dp")
+    torch.cuda.synchronize()
+    r.update(steps=record_steps(env.raw),
+             allreduce_ms=(time.perf_counter() - t0) / 200 * 1e3,
+             grad_floats=sum(g.numel() for g in grads),
+             learn_ms=float(np.mean([s.elapsed_time(e)
+                                     for s, e in algo.events])))
+    out["dqn"] = r
+
+    spread = DeviceRawLog(make("simple_spread_v3", device=dev))
+    maddpg = probe(MADDPG)(spread, MADDPGConfig(axis_name="dp"), device=dev)
+    out["maddpg"] = r = dp_run(lambda: train_marl(spread, maddpg, MARLConfig(
+        num_envs=256, chunk_size=25, max_env_steps=256 * 50,
+        max_episodes=10**9), mesh=mesh), maddpg)
+    r["steps"] = record_steps(spread.raw)
+
+    cart = DeviceRawLog(make("CartPole-v1", device=dev))
+    ppo = onpolicy_probe(PPO)(cart.dim_info, PPOConfig(
+        horizon=1024 * 16, num_envs=1024, minibatch_size=256, K_epochs=2,
+        adv_norm=True, obs_norm=True, reward_scaling=True, axis_name="dp"),
+        device=dev)
+    out["ppo"] = r = dp_run(lambda: train_onpolicy(cart, ppo, OnPolicyConfig(
+        num_envs=1024, horizon=1024 * 16, max_env_steps=1024 * 16 * 2,
+        max_episodes=10**9), mesh=mesh), ppo)
+    r["steps"] = record_steps(cart.raw)
+    for k in out:
+        out[k].pop("state")
+    return out
+
+
+def dp_card_vs_cpu(mesh, mesh_cpu) -> dict:
+    """One sharded update of DQN (PER weights, full width), PPO (CartPole,
+    the three normalizer tricks, 2x128, T 16 x 64 envs) and MADDPG (spread,
+    defaults) on this rank's card and on its CPU, from the same params and
+    this rank's batch: the card's ranks all-reduce over ``dp``, the CPU's
+    over ``dp_cpu``. Every net is held to the CPU's at 1e-5, bar one
+    element in 10,000 and none past the lr (``held``)."""
+    from freerl_tpu_torch.algos import (DQN, MADDPG, PPO, DQNConfig,
+                                        LearnDraws, MADDPGConfig, PPOConfig,
+                                        Rollout)
+    from freerl_tpu_torch.core.types import DimInfo, Transition
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train.marl import example_transition
+
+    rng = np.random.default_rng(1000 + mesh.rank)
+    devs = {"cpu": ("cpu", "dp_cpu"), "cuda": (mesh.device, "dp")}
+    errs = {}
+
+    def pair(make_algo, nets):
+        algos = {k: make_algo(dev, axis) for k, (dev, axis) in devs.items()}
+        states = {k: a.init(torch.Generator(device=devs[k][0]).manual_seed(0))
+                  for k, a in algos.items()}
+        for name in nets:
+            for i, net in enumerate(getattr(states["cpu"], name)
+                                    if isinstance(getattr(states["cpu"],
+                                                          name), list)
+                                    else [getattr(states["cpu"], name)]):
+                dst = getattr(states["cuda"], name)
+                (dst[i] if isinstance(dst, list) else dst).load_state_dict(
+                    net.state_dict())
+        return algos, states
+
+    def moved(x, dev):
+        return dataclasses.replace(x, **{f.name: getattr(x, f.name).to(dev)
+                                         for f in dataclasses.fields(x)})
+
+    # DQN with PER weights
+    algos, states = pair(lambda d, a: DQN(
+        DimInfo(obs_dim=8, action_dim=4),
+        DQNConfig(hidden=(128,), per=True, per_sampler="tree",
+                  axis_name=a), device=d), ("net", "target_net"))
+    batch = Transition(
+        obs=torch.from_numpy(rng.normal(size=(256, 8)).astype(np.float32)),
+        action=torch.from_numpy(rng.integers(0, 4, 256).astype(np.int32)),
+        reward=torch.from_numpy(rng.normal(size=256).astype(np.float32)),
+        next_obs=torch.from_numpy(rng.normal(size=(256, 8)).astype(
+            np.float32)),
+        done=torch.from_numpy(rng.random(256) < 0.1),
+        episode_done=torch.from_numpy(rng.random(256) < 0.1))
+    w = torch.from_numpy(rng.random(256).astype(np.float32))
+    for k, (dev, _) in devs.items():
+        algos[k].update(states[k], moved(batch, dev), None, w.to(dev))
+    held("dp DQN PER update", params_of(states["cpu"].net),
+         params_of(states["cuda"].net), errs, lr=1e-3)
+
+    # PPO with obs_norm, reward_scaling and adv_norm
+    algos, states = pair(lambda d, a: PPO(
+        DimInfo(obs_dim=4, action_dim=2),
+        PPOConfig(num_envs=64, minibatch_size=256, K_epochs=2,
+                  adv_norm=True, obs_norm=True, reward_scaling=True,
+                  axis_name=a), device=d), ("actor", "critic"))
+    t, n = 16, 64
+    roll = Rollout(
+        obs=torch.from_numpy(rng.normal(size=(t, n, 4)).astype(np.float32)),
+        action=torch.from_numpy(rng.integers(0, 2, (t, n))),
+        log_pi=torch.from_numpy(
+            (rng.normal(size=(t, n)) * 0.1 - 0.7).astype(np.float32)),
+        reward=torch.ones(t, n),
+        next_obs=torch.from_numpy(rng.normal(size=(t, n, 4)).astype(
+            np.float32)),
+        done=torch.from_numpy(rng.random((t, n)) < 0.05),
+        adv_done=torch.from_numpy(rng.random((t, n)) < 0.05))
+    perms = torch.stack([torch.randperm(t * n, generator=torch.Generator()
+                                        .manual_seed(e)) for e in range(2)])
+    for k, (dev, _) in devs.items():
+        r = moved(roll, dev)
+        algos[k].process_obs(states[k], r.next_obs[0], r.next_obs[0])
+        algos[k].process_reward(states[k], r.reward[0], r.adv_done[0])
+        algos[k].update(states[k], r, perms.to(dev))
+    held("dp PPO obs_rms", torch.cat([states["cpu"].obs_rms.var,
+                                      states["cpu"].obs_rms.mean]),
+         torch.cat([states["cuda"].obs_rms.var,
+                    states["cuda"].obs_rms.mean]), errs, rel=True)
+    held("dp PPO update", params_of(states["cpu"].actor,
+                                    states["cpu"].critic),
+         params_of(states["cuda"].actor, states["cuda"].critic), errs,
+         lr=1e-3)
+
+    # MADDPG on spread
+    envs = {k: make("simple_spread_v3", device=dev)
+            for k, (dev, _) in devs.items()}
+    algos, states = pair(lambda d, a: MADDPG(
+        envs["cpu" if d == "cpu" else "cuda"], MADDPGConfig(axis_name=a),
+        device=d), ("actors", "actor_targets", "critics", "critic_targets"))
+    rows, a, di = 1024, 3, envs["cpu"].dim_info
+    data = dict(
+        obs=rng.normal(size=(rows, a, di.obs_dim)).astype(np.float32),
+        action=rng.uniform(-1, 1, (rows, a, di.action_dim)).astype(
+            np.float32),
+        reward=rng.normal(size=(rows, a)).astype(np.float32),
+        next_obs=rng.normal(size=(rows, a, di.obs_dim)).astype(np.float32),
+        done=rng.random(rows) < 0.1, episode_done=rng.random(rows) < 0.1)
+    idx = torch.from_numpy(rng.integers(0, rows, (a, 256)))
+    for k, (dev, _) in devs.items():
+        buf = algos[k].make_buffer(example_transition(envs[k]),
+                                   num_envs=rows).add(Transition(**{
+                                       f: torch.from_numpy(v).to(dev)
+                                       for f, v in data.items()}))
+        algos[k].update(states[k], buf, LearnDraws(idx=idx.to(dev)))
+    held("dp MADDPG update",
+         params_of(*states["cpu"].actors, *states["cpu"].critics),
+         params_of(*states["cuda"].actors, *states["cuda"].critics), errs,
+         lr=5e-4)
+    return errs
+
+
+def dp_rank(rank: int, d: str) -> None:
+    """One rank of the ``dp`` and ``card-vs-cpu slice 8`` phases (a spawned
+    process): join the group through a file in ``d``, build the card's mesh
+    ``dp`` (gloo: the ranks share one card) and the CPU's mesh ``dp_cpu``,
+    run both phases, save what the parent checks as ``rank<r>.pt``."""
+    import datetime
+
+    from freerl_tpu_torch.distributed import multihost
+    from freerl_tpu_torch.distributed.dp import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    timeout = datetime.timedelta(seconds=300)
+    multihost.initialize(f"file://{d}/rendezvous", DP_RANKS, rank,
+                         timeout=timeout)
+    try:
+        mesh = make_mesh(axis="dp", backend="gloo", device="cuda",
+                         timeout=timeout)
+        mesh_cpu = make_mesh(axis="dp_cpu", device="cpu", timeout=timeout)
+        t0 = time.time()
+        out = dict(paths=dp_paths(mesh), device=str(mesh.device))
+        out["paths_s"] = time.time() - t0
+        t0 = time.time()
+        out["card_vs_cpu"] = dp_card_vs_cpu(mesh, mesh_cpu)
+        out["card_vs_cpu_s"] = time.time() - t0
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dp() -> dict:
+    """Two ranks on the one card (spawned, gloo), each on its half of the
+    envs: the main path, MADDPG and PPO through the drivers' ``mesh=``,
+    then the card-against-CPU sharded updates. The parent checks that
+    every replicated tensor is bit-equal across the ranks, that B1 ran
+    once per learner step on each rank of the main path and never on the
+    others, and that the merged record equals the ranks' raw rewards
+    merged by (completion step, rank). Returns B1's launches per rank and
+    the card-against-CPU errors."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        procs = [ctx.Process(target=dp_rank, args=(r, d))
+                 for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_RANKS:
+            raise AssertionError(f"dp: rank exit codes {codes}")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+        wall = time.time() - t0
+    for name in ("dqn", "maddpg", "ppo"):
+        runs = [rk["paths"][name] for rk in ranks]
+        if not all(torch.equal(runs[0]["flat"], r["flat"]) for r in runs):
+            raise AssertionError(f"dp {name}: the ranks' states differ")
+        want = np.concatenate([s for step in zip(*(r["steps"] for r in runs))
+                               for s in step])
+        returns = runs[0]["returns"]
+        if not (np.array_equal(returns, want)
+                and all(np.array_equal(returns, r["returns"])
+                        for r in runs)):
+            raise AssertionError(f"dp {name}: the merged record is not the "
+                                 f"ranks' raw rewards merged by step")
+        launches = [r["launches"] for r in runs]
+        if name != "dqn" and any(launches):
+            raise AssertionError(f"dp {name}: sumtree launches {launches}")
+        info = runs[0]["info"]
+        log(f"[dp {name}] {DP_RANKS} ranks on {ranks[0]['device']}: "
+            f"{info['env_steps']} env steps, {info.get('updates', '')}"
+            f"{info.get('iterations', '')} updates, {info['episodes']} "
+            f"episodes in {info['elapsed_s']:.2f} s: "
+            f"{info['env_steps_per_s']:.0f} env-steps/s in all (two ranks "
+            f"sharing one card: no scaling result), state bit-equal across "
+            f"ranks ({runs[0]['flat'].numel()} floats), record == raw "
+            f"rewards merged ({len(returns)} episodes), sumtree launches "
+            f"per rank {launches}")
+    dqn = [rk["paths"]["dqn"] for rk in ranks]
+    log(f"[dp dqn] learner step {[round(r['learn_ms'], 3) for r in dqn]} ms "
+        f"per rank; gradient all-reduce ({dqn[0]['grad_floats']} float32, "
+        f"gloo through the host) {[round(r['allreduce_ms'], 4) for r in dqn]}"
+        f" ms per rank; paths {[round(rk['paths_s'], 1) for rk in ranks]} s, "
+        f"card vs CPU {[round(rk['card_vs_cpu_s'], 1) for rk in ranks]} s, "
+        f"spawn to join {wall:.1f} s")
+    for r, rk in enumerate(ranks):
+        log(f"[card-vs-cpu slice 8] rank {r}: " + "; ".join(
+            f"{k} max abs err {v[0]:.3g}, {v[1]} past 1e-5"
+            for k, v in rk["card_vs_cpu"].items()))
+    return dict(launches=[r["launches"] for r in dqn],
+                updates=[r["info"]["updates"] for r in dqn])
+
+
+def phase_nccl_one_rank() -> None:
+    """A one-rank NCCL group in this process (the only NCCL run one card
+    allows): a DQN update with ``axis_name`` bit-equal to the same update
+    with no mesh."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from freerl_tpu_torch.algos import DQN, DQNConfig
+    from freerl_tpu_torch.core.types import DimInfo, Transition
+    from freerl_tpu_torch.distributed.dp import make_mesh, release
+
+    rng = np.random.default_rng(7)
+    batch = Transition(
+        obs=torch.from_numpy(rng.normal(size=(256, 8)).astype(np.float32)),
+        action=torch.from_numpy(rng.integers(0, 4, 256).astype(np.int32)),
+        reward=torch.from_numpy(rng.normal(size=256).astype(np.float32)),
+        next_obs=torch.from_numpy(rng.normal(size=(256, 8)).astype(
+            np.float32)),
+        done=torch.from_numpy(rng.random(256) < 0.1),
+        episode_done=torch.from_numpy(rng.random(256) < 0.1))
+    batch = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).cuda()
+        for f in dataclasses.fields(batch)})
+    di = DimInfo(obs_dim=8, action_dim=4)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(axis="nccl1", backend="nccl", device="cuda")
+            nets = []
+            for axis in (None, "nccl1"):
+                algo = DQN(di, DQNConfig(hidden=(128,), axis_name=axis),
+                           device="cuda")
+                state = algo.init(torch.Generator("cuda").manual_seed(0))
+                for _ in range(3):
+                    algo.update(state, batch)
+                nets.append(params_of(state.net, state.target_net))
+            release(mesh)
+        finally:
+            dist.destroy_process_group()
+    if not torch.equal(*nets):
+        raise AssertionError("one-rank NCCL: the update with axis_name "
+                             "differs from the update with no mesh")
+    log(f"[card-vs-cpu slice 8] one-rank NCCL: three DQN updates with "
+        f"axis_name bit-equal to three with no mesh ({nets[0].numel()} "
+        f"floats)")
+
+
+def phase_golden() -> None:
+    """``golden.regenerate`` on a 25-episode CartPole recipe on the card,
+    into a temporary directory: a (1, >=25) finite stack."""
+    import tempfile
+
+    from freerl_tpu_torch.train import golden
+
+    spec = golden.GoldenSpec(
+        "CartPole-v1", "DQN_1_seed",
+        "DQN_file/learning_curves/CartPole-v1/DQN_3_seed.npy",
+        regen=("--algo", "DQN", "--env_name", "CartPole-v1",
+               "--max_episodes", "25", "--num_envs", "4",
+               "--buffer_size", "2048", "--seed", "{seed}"),
+        regen_seeds=(0,))
+    with tempfile.TemporaryDirectory() as d:
+        saved_root = golden.OURS_ROOT
+        golden.OURS_ROOT = d
+        try:
+            path = golden.regenerate(spec, results_root=d, device="cuda")
+        finally:
+            golden.OURS_ROOT = saved_root
+        stacked = np.load(os.path.join(d, "CartPole-v1", "DQN_1_seed.npy"))
+    if not (stacked.shape[0] == 1 and stacked.shape[1] >= 25
+            and np.isfinite(stacked).all()):
+        raise AssertionError(f"golden: stack {stacked.shape}")
+    log(f"[golden] regenerate on the card: stack {stacked.shape}, returns "
+        f"{stacked.min():.1f} .. {stacked.max():.1f} (smoothed), wrote "
+        f"{os.path.basename(path)}")
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3434,6 +3872,11 @@ def main() -> int:
         timed(name, fn) for name, fn in (
             ("cli", phase_cli), ("host", phase_host), ("smac", phase_smac),
             ("profiling", phase_profiling)))
+    # once per learner step on each rank of the data-parallel main path
+    kernel["launches_dp"] = timed("dp and card-vs-cpu slice 8", phase_dp)[
+        "launches"]
+    timed("card-vs-cpu slice 8 one-rank NCCL", phase_nccl_one_rank)
+    timed("golden", phase_golden)
     for name in LEARNING_CHECKS:
         launches = timed(f"learning {name}", phase_learning, name)
         driver = LEARNING_CHECKS[name].get("driver")

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from freerl_tpu_torch.core.types import Transition
+from freerl_tpu_torch.distributed.dp import mesh_of
 
 
 @dataclasses.dataclass
@@ -118,10 +119,11 @@ def frozen_copy(net: torch.nn.Module) -> torch.nn.Module:
 
 
 def check_axis_name(cfg) -> None:
+    """A config's ``axis_name`` must name a mesh that
+    ``distributed.make_mesh`` registered: the updates all-reduce over it,
+    and an unknown axis raises here rather than skipping the reduction."""
     if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (data-parallel gradients) comes with the distributed "
-            "slice (ROADMAP.md queue A, slice 8)")
+        mesh_of(cfg.axis_name)
 
 
 class OffPolicyAlgo:

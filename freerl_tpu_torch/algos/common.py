@@ -6,6 +6,8 @@ from typing import Iterable, Sequence
 
 import torch
 
+from freerl_tpu_torch.distributed.dp import pmean
+
 
 @torch.no_grad()
 def polyak(target_params: Iterable[torch.Tensor],
@@ -84,6 +86,21 @@ def gae(rewards: torch.Tensor, values: torch.Tensor,
     return advs, advs + values
 
 
+def adv_normalize(adv: torch.Tensor, eps: float,
+                  axis_name: str | None = None) -> torch.Tensor:
+    """``(adv - mean) / (std + eps)`` with the population std. Under
+    ``axis_name`` the moments are the GLOBAL batch's, averaged over the
+    ranks and the std taken as ``sqrt(max(E[x^2] - E[x]^2, 0))``, as the
+    JAX package's sharded branch computes it (its rounding differs from
+    the local ``std``)."""
+    if axis_name is None:
+        return (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + eps)
+    m, sq = pmean(torch.stack([torch.mean(adv), torch.mean(torch.square(adv))]),
+                  axis_name)
+    std = torch.sqrt(torch.clamp(sq - torch.square(m), min=0.0))
+    return (adv - m) / (std + eps)
+
+
 def clip_grads_by_norm(grads: list[torch.Tensor],
                        max_norm: float) -> list[torch.Tensor]:
     """Scale a group of gradients by ``min(1, max_norm / (norm + 1e-6))``,
@@ -110,13 +127,15 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
 
 
 def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
-                   loss: torch.Tensor, max_norm: float | None = None) -> None:
+                   loss: torch.Tensor, max_norm: float | None = None,
+                   axis_name: str | None = None) -> None:
     """One step of ``opt`` on ``params`` down the gradient of ``loss``,
-    clipped first by :func:`clip_by_global_norm` when ``max_norm`` is
-    given. Only ``params`` get gradients: a loss that runs through another
-    net (the critic under the actor loss) leaves that net's ``.grad``
+    averaged over the ranks of ``axis_name`` when it is given, then
+    clipped by :func:`clip_by_global_norm` when ``max_norm`` is given.
+    Only ``params`` get gradients: a loss that runs through another net
+    (the critic under the actor loss) leaves that net's ``.grad``
     alone."""
-    grads = torch.autograd.grad(loss, params)
+    grads = pmean(list(torch.autograd.grad(loss, params)), axis_name)
     if max_norm is not None:
         grads = clip_by_global_norm(grads, max_norm)
     for p, g in zip(params, grads):

@@ -227,7 +227,7 @@ class DDPG(OffPolicyAlgo):
         if not di.is_continue:
             draws.gumbel = draw_gumbel((b, di.action_dim), generator, dev)
         elif self.cfg.ou_noise:
-            draws.ou = torch.randn(self.cfg.num_envs, di.action_dim,
+            draws.ou = torch.randn(b, di.action_dim,
                                    generator=generator, device=dev)
         else:
             draws.normal = torch.randn(b, di.action_dim, generator=generator,
@@ -293,7 +293,9 @@ class DDPG(OffPolicyAlgo):
     def process_obs(self, state: DDPGState, next_obs, carry_obs):
         if not self.cfg.obs_norm:
             return state, next_obs, carry_obs
-        state.obs_rms = state.obs_rms.update(next_obs)
+        # global-batch moments under a mesh
+        state.obs_rms = state.obs_rms.update(next_obs,
+                                             axis_name=self.cfg.axis_name)
         return (state, state.obs_rms.normalize(next_obs),
                 state.obs_rms.normalize(carry_obs))
 
@@ -352,7 +354,7 @@ class DDPG(OffPolicyAlgo):
         q = state.critic(batch.obs, action)
         critic_loss = torch.mean(torch.square(q - target))
         optimizer_step(state.critic_opt, critic_params, critic_loss,
-                       cfg.grad_clip)
+                       cfg.grad_clip, cfg.axis_name)
 
         # --- actor (through the updated critic) ------------------------
         actor_params = list(state.actor.parameters())
@@ -361,7 +363,7 @@ class DDPG(OffPolicyAlgo):
             a = gumbel_softmax(a, draws, 1.0, hard=True)
         actor_loss = -torch.mean(state.critic(batch.obs, a))
         optimizer_step(state.actor_opt, actor_params, actor_loss,
-                       cfg.grad_clip)
+                       cfg.grad_clip, cfg.axis_name)
 
         polyak(state.actor_target.parameters(), actor_params, cfg.tau)
         polyak(state.critic_target.parameters(), critic_params, cfg.tau)

@@ -7,9 +7,10 @@ tau, Adam(lr 1e-3, eps 1e-8; optax and torch both add eps outside the
 square root), MSE loss (IS-weighted under PER, cross-entropy under C51),
 the Double-DQN argmax from the online net, C51 with 51 atoms on
 [-100, 100]. Pixel observations (``obs_shape``) put a conv trunk
-(``nets/cnn.py``) in front of the hidden layers. A data-parallel axis
-(``axis_name``) raises ``NotImplementedError`` rather than being silently
-ignored.
+(``nets/cnn.py``) in front of the hidden layers. Under a data-parallel
+axis (``axis_name``, a mesh of ``distributed/dp.py``) the gradients are
+averaged over the ranks before the Adam step; an axis no mesh was made for
+raises.
 
 Every random draw is an argument or comes from the caller's
 ``torch.Generator``: ``update`` takes the noise of its three noisy
@@ -32,6 +33,7 @@ from freerl_tpu_torch.algos.common import c51_project, polyak, td_target
 from freerl_tpu_torch.buffers.nstep import (nstep_count, nstep_fold,
                                             nstep_sample_range)
 from freerl_tpu_torch.core.types import DimInfo, Transition
+from freerl_tpu_torch.distributed.dp import pmean_grads
 from freerl_tpu_torch.nets.cnn import conv_trunk
 from freerl_tpu_torch.nets.mlp import Dense
 from freerl_tpu_torch.nets.noisy import NoisyDense, NoisyHeads
@@ -250,6 +252,7 @@ class DQN(OffPolicyAlgo):
             per_sample = torch.abs(td)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        pmean_grads(state.net.parameters(), cfg.axis_name)
         state.opt.step()
         polyak(state.target_net.parameters(), state.net.parameters(),
                cfg.tau)

@@ -343,7 +343,7 @@ class Envelope(OffPolicyAlgo):
         main = torch.mean(torch.square(q_a - target_q))
         loss = state.beta * aux + (1.0 - state.beta) * main
         params = list(state.net.parameters())
-        optimizer_step(state.opt, params, loss, cfg.grad_clip)
+        optimizer_step(state.opt, params, loss, cfg.grad_clip, cfg.axis_name)
         polyak(state.target_net.parameters(), params, cfg.tau)
         state.step += 1
         return state, {"loss": loss.detach(), "beta": state.beta}, None
@@ -501,13 +501,13 @@ class EnvelopeDDPG(OffPolicyAlgo):
                        + (1.0 - beta) * torch.mean(torch.square(q - target_q)))
         critic_params = list(state.critic.parameters())
         optimizer_step(state.critic_opt, critic_params, critic_loss,
-                       cfg.grad_clip)
+                       cfg.grad_clip, cfg.axis_name)
 
         actor_params = list(state.actor.parameters())
         q_new = state.critic(obs, state.actor(obs, w), w)
         actor_loss = -torch.mean(torch.sum(w * q_new, dim=-1))
         optimizer_step(state.actor_opt, actor_params, actor_loss,
-                       cfg.grad_clip)
+                       cfg.grad_clip, cfg.axis_name)
 
         polyak(state.actor_target.parameters(), actor_params, cfg.tau)
         polyak(state.critic_target.parameters(), critic_params, cfg.tau)

@@ -27,6 +27,7 @@ from freerl_tpu_torch.algos.common import clip_grads_by_norm, gae, huber
 from freerl_tpu_torch.algos.mappo import (MAPPO, MAPPOConfig, MAPPOState,
                                           step)
 from freerl_tpu_torch.algos.ppo import Rollout
+from freerl_tpu_torch.distributed.dp import pmean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +137,11 @@ class HAPPO(MAPPO):
                     critic_loss = torch.mean(
                         huber(err, cfg.huber_delta) if cfg.huber_loss
                         else torch.square(err))
-                    a_g = torch.autograd.grad(actor_loss, a_params)
-                    c_g = torch.autograd.grad(critic_loss, c_params)
+                    # both nets' gradients averaged in one all-reduce
+                    g = pmean([*torch.autograd.grad(actor_loss, a_params),
+                               *torch.autograd.grad(critic_loss, c_params)],
+                              cfg.axis_name)
+                    a_g, c_g = g[:len(a_params)], g[len(a_params):]
                     step(state.actor_opts[i], a_params,
                          clip_grads_by_norm(a_g, 0.5))
                     step(state.critic_opts[i], c_params,

@@ -249,7 +249,7 @@ class MAAC(MultiAgentAlgo):
                                                   - targets[i]))
                           for i in range(n))
         optimizer_step(state.critic_opt, critic_params, critic_loss,
-                       self.GRAD_CLIP)
+                       self.GRAD_CLIP, cfg.axis_name)
 
         # actors: the advantage against E_pi[Q_i] of the updated critics
         with torch.no_grad():
@@ -264,7 +264,7 @@ class MAAC(MultiAgentAlgo):
             actor_loss = -torch.mean(logp_a * adv)
             optimizer_step(state.actor_opts[i],
                            list(state.actors[i].parameters()), actor_loss,
-                           self.GRAD_CLIP)
+                           self.GRAD_CLIP, cfg.axis_name)
             metrics[f"actor_loss_{i}"] = actor_loss.detach()
 
         polyak(state.critic_target.parameters(), critic_params, cfg.tau)

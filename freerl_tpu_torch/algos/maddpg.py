@@ -277,14 +277,14 @@ class MADDPG(MultiAgentAlgo):
             else:
                 critic_loss = torch.mean(torch.square(q - target))
             optimizer_step(state.critic_opts[i], list(critic.parameters()),
-                           critic_loss, self.GRAD_CLIP)
+                           critic_loss, self.GRAD_CLIP, cfg.axis_name)
             metrics[f"critic_loss_{i}"] = critic_loss.detach()
 
             if do_actor:
                 actor_loss = self._actor_loss(state, batch, acts, i, draws)
                 optimizer_step(state.actor_opts[i],
                                list(state.actors[i].parameters()), actor_loss,
-                               self.GRAD_CLIP)
+                               self.GRAD_CLIP, cfg.axis_name)
                 actor_loss = actor_loss.detach()
             else:
                 actor_loss = torch.zeros((), device=self.device)

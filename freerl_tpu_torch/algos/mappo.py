@@ -54,10 +54,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from freerl_tpu_torch.algos.base import check_axis_name
-from freerl_tpu_torch.algos.common import clip_grads_by_norm, gae, huber
+from freerl_tpu_torch.algos.common import (adv_normalize,
+                                           clip_grads_by_norm, gae, huber)
 from freerl_tpu_torch.algos.maac import SharedAttention
 from freerl_tpu_torch.algos.ppo import Rollout
 from freerl_tpu_torch.core.normalization import RewardScaling, RunningMeanStd
+from freerl_tpu_torch.distributed.dp import pmean
 from freerl_tpu_torch.nets import distributions as D
 from freerl_tpu_torch.nets.mlp import Dense, StackedDense, init_scheme
 from freerl_tpu_torch.nets.norm import LayerNorm
@@ -376,20 +378,30 @@ class AgentAxisPPO:
             return D.draw_normal(shape, generator, self.device)
         return D.draw_gumbel(shape, generator, self.device)
 
+    # whether the running stats fold global-batch moments under a mesh
+    # (rMAPPO's JAX counterpart passes no axis to its normalizers)
+    STATS_OVER_AXIS = True
+
+    def _stats_axis(self):
+        return self.cfg.axis_name if self.STATS_OVER_AXIS else None
+
     def process_obs(self, state, next_obs, carry_obs):
         if not self.cfg.obs_norm:
             return state, next_obs, carry_obs
-        state.obs_rms = state.obs_rms.update(next_obs)
+        state.obs_rms = state.obs_rms.update(next_obs,
+                                             axis_name=self._stats_axis())
         return (state, state.obs_rms.normalize(next_obs),
                 state.obs_rms.normalize(carry_obs))
 
     def process_reward(self, state, reward, episode_done):
         if self.cfg.reward_scaling:
             ep = episode_done[:, None].expand(reward.shape).reshape(-1)
-            state.rew_scale, scaled = state.rew_scale(reward.reshape(-1), ep)
+            state.rew_scale, scaled = state.rew_scale(
+                reward.reshape(-1), ep, axis_name=self._stats_axis())
             return state, scaled.reshape(reward.shape)
         if self.cfg.reward_norm:
-            state.rew_rms = state.rew_rms.update(reward)
+            state.rew_rms = state.rew_rms.update(
+                reward, axis_name=self._stats_axis())
             return state, state.rew_rms.normalize(reward)
         return state, reward
 
@@ -615,8 +627,7 @@ class MAPPO(AgentAxisPPO):
                 rollout.done[..., None], rollout.adv_done[..., None],
                 cfg.gamma, cfg.lmbda)
             if cfg.adv_norm:
-                adv = (adv - torch.mean(adv)) / (
-                    torch.std(adv, correction=0) + 1e-8)
+                adv = adv_normalize(adv, 1e-8, cfg.axis_name)
             batch = dict(
                 obs=rollout.obs.reshape((B, a, -1)),
                 act=rollout.action.reshape(
@@ -672,7 +683,8 @@ class MAPPO(AgentAxisPPO):
                         v, vt = v[:, None], vt_f[idx]
                 loss = self._loss(logp, ent, batch["logp"][idx, i], adv, v,
                                   vt, stacked=False)
-                grads = torch.autograd.grad(loss, params)
+                grads = pmean(list(torch.autograd.grad(loss, params)),
+                              cfg.axis_name)
                 step(state.opts[i], params,
                      self._clip(grads, n_actor, clip_grads_by_norm))
 
@@ -711,7 +723,8 @@ class MAPPO(AgentAxisPPO):
                     adv_b, vt_b = adv[idx], vt[idx]         # (A, mb, A)
                 loss = self._loss(logp, ent, lps[rows, idx], adv_b, v, vt_b,
                                   stacked=True).sum()
-                grads = torch.autograd.grad(loss, params)
+                grads = pmean(list(torch.autograd.grad(loss, params)),
+                              cfg.axis_name)
                 step(state.opts[0], params,
                      self._clip(grads, n_actor, clip_stacked_grads_by_norm))
 

@@ -173,7 +173,7 @@ class MASAC(MultiAgentAlgo):
             critic_loss = (torch.mean(torch.square(q1 - target))
                            + torch.mean(torch.square(q2 - target)))
             optimizer_step(state.critic_opts[i], list(critic.parameters()),
-                           critic_loss, self.GRAD_CLIP)
+                           critic_loss, self.GRAD_CLIP, cfg.axis_name)
 
             # the other agents' fresh actions from their live actors
             new_acts = []
@@ -192,10 +192,11 @@ class MASAC(MultiAgentAlgo):
             actor_loss = torch.mean(alpha * logp - torch.minimum(q1, q2))
             optimizer_step(state.actor_opts[i],
                            list(state.actors[i].parameters()), actor_loss,
-                           self.GRAD_CLIP)
+                           self.GRAD_CLIP, cfg.axis_name)
 
             if cfg.adaptive_alpha:
-                # L = alpha * (mean entropy - target), the error held fixed
+                # L = alpha * (mean entropy - target), the error held fixed;
+                # rank-local under a mesh, as in the JAX package
                 err = torch.mean(-logp.detach()) - self.target_entropies[i]
                 optimizer_step(state.alpha_opts[i], [state.log_alphas[i]],
                                torch.exp(state.log_alphas[i]) * err)

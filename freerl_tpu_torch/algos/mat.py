@@ -41,6 +41,7 @@ from freerl_tpu_torch.algos.common import clip_grads_by_norm, gae
 from freerl_tpu_torch.algos.mappo import (lr_fraction, set_lr, step,
                                           value_loss)
 from freerl_tpu_torch.algos.ppo import Rollout
+from freerl_tpu_torch.distributed.dp import pmean
 from freerl_tpu_torch.nets import distributions as D
 from freerl_tpu_torch.nets.mlp import Dense
 from freerl_tpu_torch.nets.norm import LayerNorm
@@ -410,7 +411,8 @@ class MAT:
                     torch.minimum(surr1, surr2), dim=-1)) - (
                     cfg.entropy_coefficient * torch.mean(ent))
                 loss = actor_loss + value_loss(cfg, v, vt_f[idx])
-                grads = torch.autograd.grad(loss, params)
+                grads = pmean(list(torch.autograd.grad(loss, params)),
+                              cfg.axis_name)
                 step(state.opt, params, clip_grads_by_norm(grads, 10.0))
         state.step += 1
         return state, {"adv_mean": torch.mean(adv_f)}

@@ -43,9 +43,11 @@ import torch
 from torch import nn
 
 from freerl_tpu_torch.algos.base import check_axis_name
-from freerl_tpu_torch.algos.common import clip_grads_by_norm, gae
+from freerl_tpu_torch.algos.common import (adv_normalize,
+                                           clip_grads_by_norm, gae)
 from freerl_tpu_torch.core.normalization import RewardScaling, RunningMeanStd
 from freerl_tpu_torch.core.types import DimInfo
+from freerl_tpu_torch.distributed.dp import pmean
 from freerl_tpu_torch.nets import distributions as D
 from freerl_tpu_torch.nets.cnn import conv_trunk
 from freerl_tpu_torch.nets.mlp import MLP, Dense, Trunk, init_scheme
@@ -303,16 +305,21 @@ class PPO:
     def process_obs(self, state: PPOState, next_obs, carry_obs):
         if not self.cfg.obs_norm:
             return state, next_obs, carry_obs
-        state.obs_rms = state.obs_rms.update(next_obs)
+        # under a mesh the stats fold global-batch moments and stay
+        # replicated
+        state.obs_rms = state.obs_rms.update(next_obs,
+                                             axis_name=self.cfg.axis_name)
         return (state, state.obs_rms.normalize(next_obs),
                 state.obs_rms.normalize(carry_obs))
 
     def process_reward(self, state: PPOState, reward, episode_done):
         if self.cfg.reward_scaling:
-            state.rew_scale, scaled = state.rew_scale(reward, episode_done)
+            state.rew_scale, scaled = state.rew_scale(
+                reward, episode_done, axis_name=self.cfg.axis_name)
             return state, scaled
         if self.cfg.reward_norm:
-            state.rew_rms = state.rew_rms.update(reward)
+            state.rew_rms = state.rew_rms.update(
+                reward, axis_name=self.cfg.axis_name)
             return state, state.rew_rms.normalize(reward)
         return state, reward
 
@@ -344,8 +351,7 @@ class PPO:
                 rollout.reward, critic(rollout.obs), critic(rollout.next_obs),
                 rollout.done, rollout.adv_done, cfg.gamma, cfg.lmbda)
             if cfg.adv_norm:
-                adv = (adv - torch.mean(adv)) / (
-                    torch.std(adv, correction=0) + 1e-5)
+                adv = adv_normalize(adv, 1e-5, cfg.axis_name)
             obs_f = rollout.obs.reshape((B,) + rollout.obs.shape[2:])
             act_f = rollout.action.reshape((B,) + rollout.action.shape[2:])
             if cfg.recompute_logp:
@@ -386,9 +392,9 @@ class PPO:
                 critic_loss = torch.mean(torch.square(vt_f[idx]
                                                       - critic(obs_b)))
                 # std_decay leaves log_std out of the graph: a zero grad
-                grads = torch.autograd.grad(actor_loss + critic_loss, params,
-                                            allow_unused=True,
-                                            materialize_grads=True)
+                grads = pmean(list(torch.autograd.grad(
+                    actor_loss + critic_loss, params, allow_unused=True,
+                    materialize_grads=True)), cfg.axis_name)
                 grads = (clip_grads_by_norm(grads[:n_actor], 0.5)
                          + clip_grads_by_norm(grads[n_actor:], 0.5))
                 for p, g in zip(params, grads):

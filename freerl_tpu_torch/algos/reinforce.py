@@ -27,6 +27,7 @@ import torch
 from freerl_tpu_torch.algos.base import check_axis_name
 from freerl_tpu_torch.algos.ppo import CategoricalPolicy, Rollout
 from freerl_tpu_torch.core.types import DimInfo
+from freerl_tpu_torch.distributed.dp import pmax, pmean
 from freerl_tpu_torch.nets import distributions as D
 
 
@@ -105,7 +106,15 @@ class REINFORCE:
     def update(self, state: REINFORCEState, rollout: Rollout, draws=None,
                episodes=None):
         """One Adam step per filled episode slot, in place. Returns (state,
-        {"loss": the sum of the slots' losses})."""
+        {"loss": the sum of the slots' losses}).
+
+        Under ``axis_name`` the ranks' filled slots differ. Every rank
+        steps through the slots filled on ANY rank (an all-reduced max) and
+        joins each slot's gradient all-reduce, with a zero gradient where
+        it has no such episode, then takes the Adam step only where it
+        has one: the JAX package's local ``has`` select after the pmean.
+        Where the ranks' counts differ, their parameters drift apart, as
+        they do in the JAX package."""
         cfg = self.cfg
         T, N = rollout.reward.shape
 
@@ -128,12 +137,19 @@ class REINFORCE:
         obs_f = rollout.obs.reshape(T * N, -1)
         act_f = rollout.action.reshape(-1)
         # the update's one host read: which slots hold a whole episode
-        done_counts = n_done.tolist()
-        filled = [k for k in range(cfg.max_eps_per_update)
-                  if done_counts[k % N] > k // N]
+        k_all = torch.arange(cfg.max_eps_per_update, device=n_done.device)
+        has = n_done[k_all % N] > k_all // N
+        filled_here = has.tolist()
+        filled = (filled_here if cfg.axis_name is None
+                  else pmax(has.to(torch.int32), cfg.axis_name).tolist())
         params = list(state.policy.parameters())
         losses = []
-        for k in filled:
+        for k in (k for k, f in enumerate(filled) if f):
+            if not filled_here[k]:
+                # no episode of slot k here: a zero gradient joins the
+                # all-reduce, and no Adam step follows
+                pmean([torch.zeros_like(p) for p in params], cfg.axis_name)
+                continue
             mask = (slot_f == k).to(torch.float32)
             nz = torch.clamp(torch.sum(mask), min=1.0)
             if cfg.normalize_returns:
@@ -144,7 +160,9 @@ class REINFORCE:
                 g_k = g_f
             logp = D.categorical_log_prob(state.policy(obs_f), act_f)
             loss = torch.sum(-logp * g_k * mask)
-            for p, grad in zip(params, torch.autograd.grad(loss, params)):
+            grads = pmean(list(torch.autograd.grad(loss, params)),
+                          cfg.axis_name)
+            for p, grad in zip(params, grads):
                 p.grad = grad
             state.opt.step()
             losses.append(loss.detach())

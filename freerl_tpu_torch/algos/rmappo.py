@@ -36,6 +36,7 @@ from freerl_tpu_torch.algos.mappo import (AgentAxisPPO, lr_fraction, set_lr,
                                           step)
 from freerl_tpu_torch.algos.ppo import Rollout
 from freerl_tpu_torch.core.normalization import RewardScaling, RunningMeanStd
+from freerl_tpu_torch.distributed.dp import pmean
 from freerl_tpu_torch.nets import distributions as D
 from freerl_tpu_torch.nets.rnn import RecurrentActor, RecurrentVCritic
 
@@ -105,6 +106,8 @@ class HiddenCarry:
 
 
 class RMAPPO(AgentAxisPPO):
+    STATS_OVER_AXIS = False
+
     def __init__(self, env, cfg: RMAPPOConfig = RMAPPOConfig(),
                  device="cuda"):
         super().__init__(env, cfg, device)
@@ -302,7 +305,8 @@ class RMAPPO(AgentAxisPPO):
                     loss = self._loss(logp, ent, logp_old_c[idx, :, i],
                                       adv_b, v, vt_b, stacked=False)
                     step(state.opts[i], params,
-                         torch.autograd.grad(loss, params))
+                         pmean(list(torch.autograd.grad(loss, params)),
+                               cfg.axis_name))
         state.step += 1
         return state, {"adv_mean": torch.mean(adv)}
 

@@ -190,7 +190,7 @@ class SAC(OffPolicyAlgo):
             draws.normal = torch.randn(b, di.action_dim, generator=generator,
                                        device=dev)
             if self.cfg.ou_noise:
-                draws.ou = torch.randn(self.cfg.num_envs, di.action_dim,
+                draws.ou = torch.randn(b, di.action_dim,
                                        generator=generator, device=dev)
         else:
             draws.gumbel = draw_gumbel((b, di.action_dim), generator, dev)
@@ -255,7 +255,7 @@ class SAC(OffPolicyAlgo):
         critic_loss = (torch.mean(torch.square(q1 - target))
                        + torch.mean(torch.square(q2 - target)))
         optimizer_step(state.critic_opt, critic_params, critic_loss,
-                       self.GRAD_CLIP)
+                       self.GRAD_CLIP, cfg.axis_name)
 
         # actor: mean(Q1, Q2) through the updated critic
         actor_params = list(state.actor.parameters())
@@ -263,7 +263,7 @@ class SAC(OffPolicyAlgo):
         q1, q2 = state.critic(batch.obs, a)
         actor_loss = torch.mean(alpha * logp - 0.5 * (q1 + q2))
         optimizer_step(state.actor_opt, actor_params, actor_loss,
-                       self.GRAD_CLIP)
+                       self.GRAD_CLIP, cfg.axis_name)
 
         self._alpha_update(state, -logp.detach())
         return self._finish(state, critic_params, actor_params, critic_loss,
@@ -291,7 +291,7 @@ class SAC(OffPolicyAlgo):
         critic_loss = (torch.mean(torch.square(q1[bidx, action] - target))
                        + torch.mean(torch.square(q2[bidx, action] - target)))
         optimizer_step(state.critic_opt, critic_params, critic_loss,
-                       self.GRAD_CLIP)
+                       self.GRAD_CLIP, cfg.axis_name)
 
         actor_params = list(state.actor.parameters())
         logp = F.log_softmax(state.actor(batch.obs), dim=-1)
@@ -301,7 +301,7 @@ class SAC(OffPolicyAlgo):
         actor_loss = torch.mean(torch.sum(p * (alpha * logp - q), dim=-1))
         entropy = -torch.sum(p * logp, dim=-1).detach()
         optimizer_step(state.actor_opt, actor_params, actor_loss,
-                       self.GRAD_CLIP)
+                       self.GRAD_CLIP, cfg.axis_name)
 
         self._alpha_update(state, entropy)
         return self._finish(state, critic_params, actor_params, critic_loss,
@@ -309,7 +309,9 @@ class SAC(OffPolicyAlgo):
 
     def _alpha_update(self, state: SACState, entropy: torch.Tensor) -> None:
         """L = alpha * (mean entropy - target entropy), the error held
-        constant; one unclipped Adam step on ``log_alpha``."""
+        constant; one unclipped Adam step on ``log_alpha``. The JAX package
+        does not average this gradient over a mesh, so each rank's
+        temperature follows its own batch; the port does the same."""
         if not self.cfg.adaptive_alpha:
             return
         err = torch.mean(entropy) - self.target_entropy

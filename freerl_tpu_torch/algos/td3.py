@@ -183,7 +183,7 @@ class TD3(OffPolicyAlgo):
         critic_loss = (torch.mean(torch.square(q1 - target))
                        + torch.mean(torch.square(q2 - target)))
         optimizer_step(state.critic_opt, critic_params, critic_loss,
-                       self.GRAD_CLIP)
+                       self.GRAD_CLIP, cfg.axis_name)
 
         # delayed actor update; both polyak updates only on its steps
         freq = cfg.policy_freq if cfg.twin_delay else 1
@@ -192,7 +192,7 @@ class TD3(OffPolicyAlgo):
             actor_loss = -torch.mean(
                 state.critic.q1(batch.obs, state.actor(batch.obs)))
             optimizer_step(state.actor_opt, actor_params, actor_loss,
-                           self.GRAD_CLIP)
+                           self.GRAD_CLIP, cfg.axis_name)
             polyak(state.actor_target.parameters(), actor_params, cfg.tau)
             polyak(state.critic_target.parameters(), critic_params, cfg.tau)
             actor_loss = actor_loss.detach()

@@ -14,8 +14,9 @@ The state is device tensors and every update runs on the device; the
 objects are functional, as in the JAX package: an update returns a new
 object. Batch moments use the population variance, ``torch.var(...,
 correction=0)``, as ``jnp.var`` does (torch's default is the unbiased
-one). The data-parallel form (``axis_name``) comes with the distributed
-slice.
+one). With ``axis_name`` (a mesh of ``distributed/dp.py``) an update folds
+the GLOBAL batch: its moments are all-reduced over the ranks first, so
+the stats stay replicated.
 """
 from __future__ import annotations
 
@@ -23,12 +24,7 @@ import dataclasses
 
 import torch
 
-
-def _no_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (global-batch moments across a device mesh) comes "
-            "with the distributed slice (ROADMAP.md queue A, slice 8)")
+from freerl_tpu_torch.distributed.dp import pmean, psum
 
 
 def _moments(x: torch.Tensor):
@@ -55,10 +51,18 @@ class RunningMeanStd:
 
     def update(self, batch: torch.Tensor,
                axis_name: str | None = None) -> "RunningMeanStd":
-        """Fold a batch of samples (leading axes are batch axes) in."""
-        _no_axis(axis_name)
+        """Fold a batch of samples (leading axes are batch axes) in. With
+        ``axis_name`` the batch moments are first merged over the ranks
+        (the law of total variance over equal-size shards), so every rank
+        folds the global batch."""
         x = batch.reshape((-1,) + tuple(self.mean.shape))
         b_count, b_mean, b_var = _moments(x)
+        if axis_name is not None:
+            g_mean = pmean(b_mean, axis_name)
+            b_var = pmean(b_var + torch.square(b_mean - g_mean), axis_name)
+            b_mean = g_mean
+            b_count = psum(torch.tensor(b_count, device=x.device),
+                           axis_name)
         delta = b_mean - self.mean
         tot = self.count + b_count
         new_mean = self.mean + delta * (b_count / tot)

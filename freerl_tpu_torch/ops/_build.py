@@ -5,7 +5,10 @@ compiled on first use into its own shared library,
 ``build/kernels/lib<name>.so`` at the root of the checkout. ``build_all``
 starts one ``nvcc`` per source, all at once, and waits for them; ``load``
 builds what is missing or older than its source and returns the loaded
-library. The compiler's ``-Xptxas -v`` report (registers, shared memory,
+library. A build holds an exclusive ``flock`` on ``build/kernels/lock``,
+so processes that start together (the ranks of a data-parallel run) build
+each library once and never read one half written; the kernel frees the
+lock of a process that dies. The compiler's ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside each library as ``lib<name>.ptxas.txt``.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -13,7 +16,9 @@ there is no ``nvcc`` where they run.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -58,15 +63,32 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
+@contextlib.contextmanager
+def _build_lock():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: list[str] | None = None) -> dict[str, str]:
-    """Compile the given sources (default: every stale one) in parallel.
+    """Compile the given sources (default: every stale one) in parallel,
+    under the build lock; a source another process built while this one
+    waited is not built again.
 
     Returns ``{name: ptxas report}``. Raises if any compile fails.
     """
-    names = [n for n in (names or sources()) if _stale(n)]
+    with _build_lock():
+        return _build_stale(names or sources())
+
+
+def _build_stale(names: list[str]) -> dict[str, str]:
+    names = [n for n in names if _stale(n)]
     if not names:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:

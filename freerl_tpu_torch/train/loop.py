@@ -61,6 +61,9 @@ class LoopCarry:
     episode_returns: torch.Tensor  # (record_cap + 1,); the last slot drops
     total_steps: int = 0           # vector steps so far (host)
     update_count: int = 0          # (host)
+    # the data-parallel drivers' completion vector-step of each record
+    # slot, by which they merge the ranks' records
+    episode_steps: Optional[torch.Tensor] = None
 
 
 def example_transition(env: Env, algo=None) -> Transition:
@@ -97,19 +100,29 @@ def record_episodes(env: Env, c, reward: torch.Tensor,
     chronologically. Slots past the record, and rows still running, land in
     the drop slot ``record_cap`` (the masked form of JAX's ``mode="drop"``
     scatter). A multi-agent reward (N, A) keeps its agent axis, into an
-    (record_cap + 1, A) record (``record_scalarize``)."""
+    (record_cap + 1, A) record (``record_scalarize``). Where the carry has
+    ``episode_steps``, each slot also gets the vector step it completed
+    at."""
     ret = c.ep_return + record_scalarize(env, reward)
     offs = torch.cumsum(dones.to(torch.int64), 0) - 1
     slot = torch.where(dones, c.ep_counter + offs, record_cap)
-    c.episode_returns[slot.clamp_(max=record_cap)] = ret
+    slot.clamp_(max=record_cap)
+    c.episode_returns[slot] = ret
+    if c.episode_steps is not None:
+        c.episode_steps[slot] = c.total_steps
     c.ep_counter = c.ep_counter + dones.sum()
     c.ep_return = torch.where(row_mask(dones, ret), 0.0, ret)
 
 
 def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,
-                generator: torch.Generator, record_cap: int) -> None:
-    """One vector step of the loop, updating the carry in place."""
+                generator: torch.Generator, record_cap: int,
+                local_envs: Optional[int] = None) -> None:
+    """One vector step of the loop, updating the carry in place.
+    ``local_envs`` is the number of envs stepped here where it is not
+    ``cfg.num_envs`` (one rank's slice under a mesh); warm-ups and the
+    learn cadence count all ``cfg.num_envs``."""
     num_envs = cfg.num_envs
+    n_here = local_envs or num_envs
     ctx = ExploreCtx(
         total_env_steps=c.total_steps * num_envs,
         episodes=c.ep_counter,
@@ -125,7 +138,7 @@ def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,
         c.algo_state, action = algo.explore(c.algo_state, c.obs, generator,
                                             ctx)
         stored = action
-    out = vec_step_auto_reset(env, c.env_state, action, generator, num_envs)
+    out = vec_step_auto_reset(env, c.env_state, action, generator, n_here)
     c.algo_state, next_obs, carry_obs = algo.process_obs(
         c.algo_state, out.next_obs, out.carry_obs
     )
@@ -154,13 +167,13 @@ def vector_step(env: Env, algo, cfg: OffPolicyConfig, c: LoopCarry,
     if do_learn:
         for _ in range(cfg.updates_per_burst):
             c.algo_state, c.buffer, _ = algo.learn_step(
-                c.algo_state, c.buffer, generator, num_envs
+                c.algo_state, c.buffer, generator, n_here
             )
         c.update_count += cfg.updates_per_burst
 
 
 def train_offpolicy(env: Env, algo, cfg: OffPolicyConfig,
-                    on_chunk: Optional[Callable] = None):
+                    on_chunk: Optional[Callable] = None, mesh=None):
     """Generic off-policy training loop for the DQN, DDPG, TD3 and SAC
     families.
     ``algo`` must expose ``init(generator)``, ``make_buffer(example,
@@ -168,8 +181,19 @@ def train_offpolicy(env: Env, algo, cfg: OffPolicyConfig,
     ``explore_stored``), ``process_obs`` and ``learn_step(state, buffer,
     generator, num_envs)``; ``env`` and ``algo`` must share a device.
 
+    With ``mesh`` (``distributed.make_mesh``), every rank calls this and
+    the loop runs data-parallel through ``distributed/dp.py``: each rank
+    steps its slice of the envs into its own replay, and the learner's
+    gradients are all-reduced (the algo's config must carry ``axis_name``
+    equal to the mesh's axis).
+
     Returns ``(algo_state, episode_returns ndarray, info dict)``.
     """
+    if mesh is not None:
+        from freerl_tpu_torch.distributed.dp import train_offpolicy_sharded
+
+        return train_offpolicy_sharded(env, algo, cfg, mesh,
+                                       on_chunk=on_chunk)
     num_envs = cfg.num_envs
     device = env.device
     # an episode costs >=1 env step, so the record never needs more slots

@@ -66,9 +66,12 @@ def example_transition(env: Env) -> Transition:
 
 
 def vector_step(env: Env, algo, cfg: MARLConfig, c: LoopCarry,
-                generator: torch.Generator, record_cap: int) -> None:
-    """One vector step of the loop, updating the carry in place."""
+                generator: torch.Generator, record_cap: int,
+                local_envs: Optional[int] = None) -> None:
+    """One vector step of the loop, updating the carry in place;
+    ``local_envs`` as in ``train/loop.py:vector_step``."""
     num_envs = cfg.num_envs
+    n_here = local_envs or num_envs
     ctx = ExploreCtx(
         total_env_steps=c.total_steps * num_envs,
         episodes=c.ep_counter,
@@ -78,7 +81,7 @@ def vector_step(env: Env, algo, cfg: MARLConfig, c: LoopCarry,
     c.algo_state, action = algo.explore(c.algo_state, c.obs, generator, ctx)
     env_action = (action + 1.0) / 2.0 if env.dim_info.is_continue else action
     out = vec_step_auto_reset(env, c.env_state, env_action, generator,
-                              num_envs)
+                              n_here)
     dones = out.episode_done
     c.buffer = c.buffer.add(Transition(
         obs=c.obs, action=action, reward=out.reward, next_obs=out.next_obs,
@@ -92,16 +95,18 @@ def vector_step(env: Env, algo, cfg: MARLConfig, c: LoopCarry,
     if c.total_steps * num_envs > cfg.start_steps:
         for _ in range(cfg.updates_per_burst):
             c.algo_state, c.buffer, _ = algo.learn_step(
-                c.algo_state, c.buffer, generator, num_envs)
+                c.algo_state, c.buffer, generator, n_here)
         c.update_count += cfg.updates_per_burst
 
 
 def start(env: Env, algo, num_envs: int, generator: torch.Generator,
-          record_cap: int) -> LoopCarry:
-    """The algo's initial state, its replay and the reset batch, in a
-    fresh carry with an (record_cap + 1, n_agents) record."""
+          record_cap: int, algo_state=None) -> LoopCarry:
+    """The algo's initial state (``algo_state``, or built from
+    ``generator``), its replay and the reset batch, in a fresh carry with
+    an (record_cap + 1, n_agents) record."""
     device, n_agents = env.device, env.n_agents
-    algo_state = algo.init(generator)
+    if algo_state is None:
+        algo_state = algo.init(generator)
     env_state, obs = vec_reset(env, generator, num_envs)
     return LoopCarry(
         algo_state=algo_state,
@@ -125,12 +130,16 @@ def train_marl(env: Env, algo, cfg: MARLConfig,
     ``on_chunk(chunk, episodes, env_steps, carry)`` fires once per
     ``log_every_chunks`` chunks.
 
+    With ``mesh`` (``distributed.make_mesh``), every rank calls this and
+    the loop runs data-parallel through ``distributed/dp.py`` (the algo's
+    config must carry ``axis_name`` equal to the mesh's axis).
+
     Returns ``(algo_state, episode_returns ndarray (E, n_agents), info)``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (mesh) comes with the distributed slice "
-            "(ROADMAP.md queue A, slice 8, item 23)")
+        from freerl_tpu_torch.distributed.dp import train_marl_sharded
+
+        return train_marl_sharded(env, algo, cfg, mesh, on_chunk=on_chunk)
     num_envs = cfg.num_envs
     # an episode costs >=1 env step, so the record never needs more slots
     # than the step budget plus the final chunk's overshoot

@@ -69,13 +69,8 @@ class OnPolicyCarry:
     policy_carry: object = None
     done_prev: Optional[torch.Tensor] = None
     extras: Optional[dict] = None
-
-
-def _check_supported(cfg: OnPolicyConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (mesh) comes with the distributed slice "
-            "(ROADMAP.md queue A, slice 8)")
+    # the data-parallel driver's completion vector-step of each record slot
+    episode_steps: Optional[torch.Tensor] = None
 
 
 def _write(store, t: int, T: int, step: dict, make=Rollout):
@@ -127,25 +122,29 @@ def vector_step(env: Env, algo, c: OnPolicyCarry,
     c.total_steps += 1
 
 
-def learn(algo, c: OnPolicyCarry, generator: torch.Generator) -> dict:
+def learn(algo, c: OnPolicyCarry, generator: torch.Generator,
+          episodes: Optional[torch.Tensor] = None) -> dict:
     """The iteration's update on ``c.rollout`` (and a recurrent algo's
     ``c.extras``), with its draws from ``generator``; returns the update's
-    metrics."""
+    metrics. ``episodes`` (default: the carry's count) is what the
+    update's schedules read."""
     kw = {"extras": c.extras} if _recurrent(algo) else {}
     c.algo_state, metrics = algo.update(
         c.algo_state, c.rollout, algo.draw_update(c.rollout, generator),
-        episodes=c.ep_counter, **kw)
+        episodes=c.ep_counter if episodes is None else episodes, **kw)
     return metrics
 
 
 def start(env: Env, algo, num_envs: int, generator: torch.Generator,
-          record_cap: int) -> OnPolicyCarry:
-    """The algo's initial state and the reset batch, in a fresh carry;
-    a multi-agent env's returns and record keep the agent axis."""
+          record_cap: int, algo_state=None) -> OnPolicyCarry:
+    """The algo's initial state (``algo_state``, or built from
+    ``generator``) and the reset batch, in a fresh carry; a multi-agent
+    env's returns and record keep the agent axis."""
     device = env.device
     n_agents = getattr(env, "n_agents", 1)
     agents = (n_agents,) if n_agents > 1 else ()
-    algo_state = algo.init(generator)
+    if algo_state is None:
+        algo_state = algo.init(generator)
     env_state, obs = vec_reset(env, generator, num_envs)
     algo_state, _, obs = algo.process_obs(algo_state, obs, obs)
     c = OnPolicyCarry(
@@ -174,8 +173,15 @@ def train_onpolicy(env: Env, algo, cfg: OnPolicyConfig,
     ``log_every_iters`` iterations. Returns ``(algo_state,
     episode_returns ndarray, info)``; the returns are (E,), or (E, A) for
     a multi-agent env.
+
+    With ``mesh`` (``distributed.make_mesh``), every rank calls this and
+    the iteration runs data-parallel through ``distributed/dp.py`` (the
+    algo's config must carry ``axis_name`` equal to the mesh's axis).
     """
-    _check_supported(cfg, mesh)
+    if mesh is not None:
+        from freerl_tpu_torch.distributed.dp import train_onpolicy_sharded
+
+        return train_onpolicy_sharded(env, algo, cfg, mesh, on_iter=on_iter)
     num_envs = cfg.num_envs
     T = max(cfg.horizon // num_envs, 1)
     K = max(cfg.iters_per_dispatch, 1)

@@ -32,6 +32,17 @@ def aggregate_seeds(curves: Sequence[np.ndarray], alpha: float = 0.9):
     return stacked, stacked.mean(0), stacked.std(0)
 
 
+def save_seed_stack(curves: Sequence[np.ndarray], label: str,
+                    out_dir: str, alpha: float = 0.9) -> str:
+    """Save the smoothed seeds as ``<label>_<k>_seed.npy`` (k, T); returns
+    its path."""
+    stacked, _, _ = aggregate_seeds(curves, alpha)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{label}_{len(curves)}_seed.npy")
+    np.save(path, stacked)
+    return path
+
+
 def plot_learning_curve(curves: Sequence[np.ndarray], label: str,
                         out_dir: str, env_name: str,
                         goal: Optional[float] = None, alpha: float = 0.9):
@@ -41,11 +52,8 @@ def plot_learning_curve(curves: Sequence[np.ndarray], label: str,
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    stacked, mean, std = aggregate_seeds(curves, alpha)
-    os.makedirs(out_dir, exist_ok=True)
-    np.save(
-        os.path.join(out_dir, f"{label}_{len(curves)}_seed.npy"), stacked
-    )
+    save_seed_stack(curves, label, out_dir, alpha)
+    _, mean, std = aggregate_seeds(curves, alpha)
     fig, ax = plt.subplots(figsize=(8, 4.5))
     x = np.arange(len(mean))
     ax.plot(x, mean, label=label)

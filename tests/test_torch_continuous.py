@@ -311,8 +311,17 @@ def test_example_transition_actions(case):
 
 
 def test_axis_name_raises():
+    """An axis_name that no ``make_mesh`` registered raises, naming the axis
+    and make_mesh, rather than skipping the gradient all-reduce."""
     for cls, cfg in ((DDPG, DDPGConfig), (TD3, TD3Config), (SAC, SACConfig)):
-        with pytest.raises(NotImplementedError, match="slice 8"):
+        with pytest.raises(LookupError, match="'data'.*make_mesh"):
             cls(DimInfo(**DI), cfg(axis_name="data"), device="cpu")
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import OffPolicyConfig, train_offpolicy
+
+    env = make("Pendulum-v1", device="cpu")
+    with pytest.raises(TypeError, match="make_mesh"):
+        train_offpolicy(env, TD3(env.dim_info, TD3Config(), device="cpu"),
+                        OffPolicyConfig(), mesh=object())
     with pytest.raises(ValueError, match="continuous"):
         TD3(DimInfo(**DI_DISC), TD3Config(), device="cpu")

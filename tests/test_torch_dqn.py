@@ -146,7 +146,9 @@ def test_dense_init_is_torch_default():
     dict(obs_shape=(8, 8, 1), axis_name="data"), dict(axis_name="data"),
 ], ids=lambda d: next(iter(d)))
 def test_unported_tricks_raise(trick):
-    with pytest.raises(NotImplementedError, match="queue A"):
+    """An axis_name that no ``make_mesh`` registered raises, naming the axis
+    and make_mesh, rather than skipping the gradient all-reduce."""
+    with pytest.raises(LookupError, match="'data'.*make_mesh"):
         DQN(DimInfo(obs_dim=8, action_dim=4), DQNConfig(**trick), device="cpu")
 
 

@@ -331,5 +331,5 @@ def test_config_defaults_and_validators():
                        (dict(state_dim=2, independent=True), "state")):
         with pytest.raises(ValueError, match=match):
             MAPPOConfig(**bad)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(LookupError, match="'d'.*make_mesh"):
         MAPPO(spread, MAPPOConfig(axis_name="d"), device="cpu")

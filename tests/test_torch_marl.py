@@ -140,14 +140,14 @@ def test_train_marl_maac_on_masked_spread():
 
 
 def test_train_marl_refuses_what_it_does_not_take_yet(tmp_path):
-    """``mesh`` waits for the distributed slice; ``checkpoint_dir`` (since
-    slice 7) writes the algo state every ``checkpoint_every`` chunks."""
+    """``mesh`` must be a ``make_mesh`` mesh; ``checkpoint_dir`` writes the
+    algo state every ``checkpoint_every`` chunks."""
     from freerl_tpu_torch.train.runio import load_checkpoint
 
     env = mpe.SimpleSpread(N=2, device="cpu")
     algo = MADDPG(env, MADDPGConfig(buffer_size=256, batch_size=8,
                                     hidden=(8,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8, item 23"):
+    with pytest.raises(TypeError, match="make_mesh"):
         train_marl(env, algo, MARLConfig(), mesh=object())
     cfg = MARLConfig(num_envs=2, chunk_size=5, max_env_steps=20,
                      max_episodes=10**6, start_steps=4,

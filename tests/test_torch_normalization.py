@@ -64,7 +64,8 @@ def test_running_mean_std_is_population_variance():
 
 
 def test_axis_name_raises():
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    """An axis no ``make_mesh`` registered raises, naming it."""
+    with pytest.raises(LookupError, match="'data'.*make_mesh"):
         RunningMeanStd.create((3,), "cpu").update(torch.zeros(2, 3), "data")
 
 

@@ -107,7 +107,7 @@ def test_reinforce_update_matches_jax(name, normalize):
 def test_reinforce_discrete_only():
     with pytest.raises(ValueError, match="discrete"):
         REINFORCE(DimInfo(3, 1, True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(LookupError, match="'d'.*make_mesh"):
         REINFORCE(DimInfo(**DI), REINFORCEConfig(axis_name="d"), device="cpu")
     assert not hasattr(REINFORCEConfig(), "num_envs")
 
@@ -175,16 +175,15 @@ def test_iteration_cadence_and_reinforce_drive():
 
 
 def test_driver_refuses_what_it_does_not_take_yet(tmp_path):
-    """``mesh`` waits for the distributed slice; ``checkpoint_dir`` (since
-    slice 7) writes the algo state every ``checkpoint_every``
-    iterations."""
+    """``mesh`` must be a ``make_mesh`` mesh; ``checkpoint_dir`` writes the
+    algo state every ``checkpoint_every`` iterations."""
     from freerl_tpu_torch.train.runio import load_checkpoint
 
     env = make("CartPole-v1", device="cpu")
     algo = PPO(env.dim_info, PPOConfig(hidden=(8,), horizon=32, num_envs=4,
                                        K_epochs=1, minibatch_size=16),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(TypeError, match="make_mesh"):
         train_onpolicy(env, algo, OnPolicyConfig(), mesh=object())
     cfg = OnPolicyConfig(num_envs=4, horizon=32, max_env_steps=96,
                          max_episodes=10**6, checkpoint_dir=str(tmp_path),

@@ -167,7 +167,7 @@ def test_config_rules():
         PPOConfig(reward_norm=True, reward_scaling=True)
     with pytest.raises(ValueError, match="Gaussian"):
         PPOConfig(beta_dist=True, std_decay=True)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(LookupError, match="'data'.*make_mesh"):
         PPO(DimInfo(**DI_C), PPOConfig(axis_name="data"), device="cpu")
     state = PPO(DimInfo(obs_dim=64, action_dim=2, is_continue=True),
                 PPOConfig(obs_shape=(8, 8, 1), cnn_features=8),
