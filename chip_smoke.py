@@ -148,13 +148,26 @@ Phases (any failure raises, and the script exits non-zero):
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
     simple_spread_v3), seed 0: the mean return of the last episodes must
     clear each recipe's threshold;
-25. stop the processes the run started and that would outlive it (the
+25. the port's bench (``freerl_tpu_torch/bench.py``): ``bench_dqn`` at
+    the headline size (4096 envs, chunk 256, 2 measured chunks), its env
+    steps counted, its rate finite, its peak memory printed, no sum-tree
+    launch; then ``python -m freerl_tpu_torch.bench`` with
+    ``BENCH_SKIP_EXTRA=1 BENCH_CHUNKS=2`` in a subprocess, its last line
+    the bench's JSON with ``"vs_baseline": null``;
+26. ``scripts/torch_per_bench.py`` at 2^20 and batch 256: the tree sampler
+    launches the sum-tree kernel once per ``sample``, cumsum never;
+27. determinism: the same seed twice on the card (DQN on CartPole-v1 seed
+    7 and PPO on Pendulum-v1 seed 3, the JAX package's
+    tests/test_determinism.py configs, and the main path, DQN + PER tree on
+    LunarLander-v2 at full width, 1024 envs, 64 vector steps); the records
+    and every tensor of the final states bit-equal;
+28. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
-26. print one JSON line describing each kernel (with its launches on the
+29. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
-    on-policy, multi-agent, slice-6, slice-7 and data-parallel paths), the
-    card line, and the result line.
+    on-policy, multi-agent, slice-6, slice-7, data-parallel, bench and
+    per-bench paths), the card line, and the result line.
 
 It needs no network, builds everything from the checkout, and leaves no
 process running when it exits, whether it passed or failed.
@@ -2325,6 +2338,49 @@ def twins(make_algo, init_fields, devs=("cpu", "cuda")):
     return out
 
 
+class ReluInputs(torch.overrides.TorchFunctionMode):
+    """Records the input of every ReLU (``F.relu`` or ``torch.relu``) run
+    while the mode is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.nn.functional.relu, torch.relu):
+            self.seen.append(args[0].detach())
+        return func(*args, **(kwargs or {}))
+
+
+TIE_DRAWS = 3
+
+
+def relu_ties(label: str, net_cpu, net_card, obs: torch.Tensor) -> int:
+    """The ReLU inputs that the CPU's and the card's forward of ``obs`` put
+    on two sides of zero, each device along its own forward. Every such
+    input must lie within 1e-5 of zero on both (a tie at the float32 noise
+    floor); one farther out fails."""
+    seen = {}
+    for dev, net in (("cpu", net_cpu), ("cuda", net_card)):
+        with torch.no_grad(), ReluInputs() as mode:
+            net(obs.to(dev))
+        seen[dev] = [x.cpu() for x in mode.seen]
+    if not seen["cpu"] or len(seen["cpu"]) != len(seen["cuda"]):
+        raise AssertionError(f"{label}: ReLUs seen {len(seen['cpu'])} on "
+                             f"the CPU, {len(seen['cuda'])} on the card")
+    ties = 0
+    for a, b in zip(seen["cpu"], seen["cuda"]):
+        flip = (a > 0) != (b > 0)
+        far = float(torch.maximum(a.abs(), b.abs())[flip].max()) \
+            if flip.any() else 0.0
+        if far > 1e-5:
+            raise AssertionError(f"{label}: a ReLU input {far} from zero on "
+                                 f"one device is on the other side on the "
+                                 f"other")
+        ties += int(flip.sum())
+    return ties
+
+
 PENDULUM_STEP = np.pi ** 2 + 0.1 * 8.0 ** 2 + 0.001 * 2.0 ** 2
 
 
@@ -2514,6 +2570,12 @@ def phase_card_vs_cpu_slice6():
     # put such weights up to 2 lr apart: the card's free update left 47
     # and 497 weights past 1e-5 (max 0.0019995, 0.0019999 at lr 1e-3) in
     # two full calls on the card, against 1-19 in earlier ones.
+    # A batch on which the two devices' forwards send a ReLU input to two
+    # sides of zero (a tie: both within float32 noise of it) has no one
+    # gradient to hold: one ReLU unit's branch moves its layer's weight
+    # gradients by up to ~1.6e-4 (scripts/torch_conv_check.py: 1 batch in
+    # 20 for the nature trunk). Such a batch is drawn again; a ReLU input
+    # the devices put on two sides of zero farther than 1e-5 from it fails.
     for arch, shape, feats in (("small", (48, 48, 2), 128),
                                ("nature", (84, 84, 4), 512)):
         obs_dim = int(np.prod(shape))
@@ -2522,13 +2584,23 @@ def phase_card_vs_cpu_slice6():
                         batch_size=64)
         pair = twins(lambda dev: DQN(di, cfg, device=dev),
                      ("net", "target_net"))
-        done = rng.rand(64) < 0.1
-        b = Transition(obs=torch.rand(64, obs_dim),
-                       action=torch.as_tensor(rng.randint(0, 2, 64)),
-                       reward=torch.randn(64),
-                       next_obs=torch.rand(64, obs_dim),
-                       done=torch.as_tensor(done),
-                       episode_done=torch.as_tensor(done))
+        for _ in range(TIE_DRAWS):
+            done = rng.rand(64) < 0.1
+            b = Transition(obs=torch.rand(64, obs_dim),
+                           action=torch.as_tensor(rng.randint(0, 2, 64)),
+                           reward=torch.randn(64),
+                           next_obs=torch.rand(64, obs_dim),
+                           done=torch.as_tensor(done),
+                           episode_done=torch.as_tensor(done))
+            ties = relu_ties(f"dqn_{arch}", pair["cpu"][1].net,
+                             pair["cuda"][1].net, b.obs)
+            errs[f"dqn_{arch}_relu_ties"] = errs.get(
+                f"dqn_{arch}_relu_ties", []) + [ties]
+            if not ties:
+                break
+        else:
+            raise AssertionError(f"dqn_{arch}: a ReLU tie in each of "
+                                 f"{TIE_DRAWS} batches")
         fwd = {dev: st.net(b.obs.to(dev)).detach() for dev, (_, st) in
                pair.items()}
         held(f"dqn_{arch}_forward", fwd["cpu"], fwd["cuda"], errs)
@@ -3812,6 +3884,142 @@ def phase_golden() -> None:
         f"{os.path.basename(path)}")
 
 
+BENCH_ENVS, BENCH_CHUNK, BENCH_CHUNKS = 4096, 256, 2
+
+
+def phase_bench() -> int:
+    """The port's bench (``freerl_tpu_torch/bench.py``): ``bench_dqn`` at
+    the headline size (4096 envs, chunk 256) for 2 measured chunks, in this
+    process; then ``python -m freerl_tpu_torch.bench`` with
+    ``BENCH_SKIP_EXTRA=1 BENCH_CHUNKS=2`` in a subprocess, whose last line
+    must be the bench's JSON. Returns B1's launches (0: uniform replay)."""
+    import math
+
+    from freerl_tpu_torch import bench
+    from freerl_tpu_torch.ops import sumtree
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sumtree.launches = 0
+    run = bench.bench_dqn(num_envs=BENCH_ENVS, chunk=BENCH_CHUNK,
+                          measure_chunks=BENCH_CHUNKS, device="cuda")
+    launches = sumtree.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = BENCH_CHUNKS * BENCH_CHUNK * BENCH_ENVS
+    if run.env_steps != want or not math.isfinite(run.env_steps_per_s):
+        raise AssertionError(f"bench: {run} (expected {want} env steps)")
+    if launches:
+        raise AssertionError(f"bench: uniform replay launched the sum-tree "
+                             f"kernel {launches} times")
+    log(f"[bench] bench_dqn {BENCH_ENVS} envs x chunk {BENCH_CHUNK} x "
+        f"{BENCH_CHUNKS} chunks: {run.env_steps} env steps in "
+        f"{run.elapsed_s:.3f} s, {run.env_steps_per_s:.1f} env-steps/s, "
+        f"peak memory {peak:.1f} MiB, sumtree launches {launches}")
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_SKIP_EXTRA="1", BENCH_CHUNKS=str(BENCH_CHUNKS))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "freerl_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=600,
+                          env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"bench: python -m freerl_tpu_torch.bench "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if (set(line) != {"metric", "value", "unit", "vs_baseline", "extra"}
+            or line["metric"] != "dqn_lunarlander_env_steps_per_s"
+            or line["vs_baseline"] is not None or line["extra"]
+            or not (math.isfinite(line["value"]) and line["value"] > 0)):
+        raise AssertionError(f"bench: last line {line}")
+    log(f"[bench] python -m freerl_tpu_torch.bench (BENCH_SKIP_EXTRA=1 "
+        f"BENCH_CHUNKS={BENCH_CHUNKS}) in {time.time() - t0:.1f} s: "
+        f"{json.dumps(line)} | {proc.stderr.strip().splitlines()[-1]}")
+    return launches
+
+
+def phase_per_bench() -> int:
+    """``scripts/torch_per_bench.py`` at the main path's PER size (2^20,
+    batch 256, 200 timed cycles per sampler): B1 once per ``sample`` on
+    ``tree``, never on ``cumsum`` (the script checks it). Returns B1's
+    launches."""
+    from freerl_tpu_torch.ops import sumtree
+    from scripts import torch_per_bench
+
+    sumtree.launches = 0
+    out = torch_per_bench.run(capacity=1 << MAIN_CAP_POW, batch=MAIN_BATCH,
+                              iters=200, device="cuda")
+    us, n, launches = (out["cycle_us"], out["samples"],
+                       out["sumtree_launches"])
+    log(f"[per bench] capacity {out['capacity']}, batch {out['batch']}: "
+        f"tree (B1) {us['tree']:.1f} us per add+sample+update cycle, "
+        f"cumsum {us['cumsum']:.1f} us; sumtree launches {launches} for "
+        f"{n} samples")
+    return launches["tree"]
+
+
+def determinism_runs() -> dict:
+    """Each config's run: the JAX package's tests/test_determinism.py
+    configs (DQN on CartPole-v1, seed 7; PPO on Pendulum-v1, seed 3) and
+    the main path (DQN + PER tree on LunarLander-v2 at full width, 1024
+    envs, 64 vector steps), on the card."""
+    from freerl_tpu_torch.algos import DQN, PPO, DQNConfig, PPOConfig
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import (OffPolicyConfig, OnPolicyConfig,
+                                        train_offpolicy, train_onpolicy)
+
+    def dqn_cartpole():
+        env = make("CartPole-v1", device="cuda")
+        algo = DQN(env.dim_info, DQNConfig(buffer_size=4096, batch_size=32),
+                   device="cuda")
+        return train_offpolicy(env, algo, OffPolicyConfig(
+            seed=7, num_envs=4, max_episodes=40, start_steps=200,
+            chunk_size=64))
+
+    def ppo_pendulum():
+        env = make("Pendulum-v1", device="cuda")
+        algo = PPO(env.dim_info, PPOConfig(horizon=256, K_epochs=2,
+                                           num_envs=4), device="cuda")
+        return train_onpolicy(env, algo, OnPolicyConfig(
+            seed=3, num_envs=4, max_episodes=16, horizon=256))
+
+    def main_path():
+        env = make("LunarLander-v2", device="cuda")
+        algo = DQN(env.dim_info, DQNConfig(
+            per=True, per_sampler="tree", buffer_size=1_000_000,
+            batch_size=256), device="cuda")
+        return train_offpolicy(env, algo, OffPolicyConfig(
+            seed=0, num_envs=1024, chunk_size=64, max_env_steps=1024 * 64,
+            max_episodes=10**9))
+
+    return {"DQN CartPole-v1 seed 7": dqn_cartpole,
+            "PPO Pendulum-v1 seed 3": ppo_pendulum,
+            "main path DQN + PER tree LunarLander-v2": main_path}
+
+
+def phase_determinism() -> None:
+    """The same seed twice on the card: the episode records and every
+    tensor of the final algo state (nets, targets, optimizer state) must
+    be bit-equal."""
+    from freerl_tpu_torch.distributed.dp import state_tensors
+
+    for name, run in determinism_runs().items():
+        (s1, r1, info), (s2, r2, _) = run(), run()
+        t1, t2 = state_tensors(s1), state_tensors(s2)
+        differ = [k for k, (a, b) in enumerate(zip(t1, t2))
+                  if not torch.equal(a, b)]
+        if not (np.array_equal(r1, r2) and len(t1) == len(t2)
+                and not differ):
+            raise AssertionError(
+                f"determinism {name}: records equal "
+                f"{np.array_equal(r1, r2)}, state tensors "
+                f"{len(t1)} / {len(t2)}, differing {differ}")
+        log(f"[determinism] {name}: twice bit-equal: {len(r1)} episodes, "
+            f"{len(t1)} state tensors ({sum(t.numel() for t in t1)} "
+            f"elements), {info['env_steps']} env steps")
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3882,6 +4090,9 @@ def main() -> int:
         driver = LEARNING_CHECKS[name].get("driver")
         if driver in ("onpolicy", "marl"):
             kernel[f"launches_{driver}"] += launches
+    kernel["launches_bench"] = timed("bench", phase_bench)
+    kernel["launches_per_bench"] = timed("per bench", phase_per_bench)
+    timed("determinism", phase_determinism)
     left = stop_children()
     if left:
         raise AssertionError(f"processes still running after the phases, "

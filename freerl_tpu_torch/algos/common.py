@@ -166,3 +166,30 @@ def c51_project(next_probs: torch.Tensor, tz: torch.Tensor,
     j = torch.arange(n, dtype=b.dtype, device=b.device)
     weight = torch.relu(1.0 - torch.abs(b[:, :, None] - j))          # (B, N, N)
     return torch.sum(next_probs[:, :, None] * weight, dim=1)
+
+
+def explained_variance(returns: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+    """``1 - Var(returns - values) / max(Var(returns), 1e-8)``, with
+    population variances (``jnp.var``'s)."""
+    var_r = torch.var(returns, correction=0)
+    return 1.0 - torch.var(returns - values, correction=0) / torch.clamp(
+        var_r, min=1e-8)
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """The global L2 norm of ``grads``: a sequence or dict of tensors
+    (nested ones too, as a pytree's leaves), or a module, whose
+    parameters' ``.grad`` are taken where they are set."""
+    if isinstance(grads, torch.nn.Module):
+        grads = [p.grad for p in grads.parameters() if p.grad is not None]
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            x = x.values()
+        return [t for v in x for t in leaves(v)]
+
+    sq = [torch.sum(torch.square(g)) for g in leaves(grads)]
+    return torch.sqrt(torch.stack(sq).sum() if sq else torch.zeros(()))

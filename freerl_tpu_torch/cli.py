@@ -151,8 +151,16 @@ def build(args):
             buffer_size=args.buffer_size, batch_size=args.batch_size,
             num_envs=n_envs), **dev)
     if a == "ENVELOPE":
-        # the JAX CLI forces full-precision matmuls here; torch's float32
-        # matmuls already run at full precision (TF32 stays off)
+        # full float32 for the preference-conditioned Q, as the JAX CLI:
+        # reduced-precision matmul noise feeds the max-bias inflation loop
+        # at extreme preferences. torch's defaults already run float32
+        # matmuls in full, but cuDNN convolutions in TF32, and a caller may
+        # have turned TF32 on. Process-global; an explicit
+        # FREERL_MATMUL_PRECISION (read at import) wins.
+        if not os.environ.get("FREERL_MATMUL_PRECISION"):
+            from freerl_tpu_torch import set_matmul_precision
+
+            set_matmul_precision("float32")
         rdim = getattr(env, "reward_dim", 2)
         return env, algos.Envelope(env.dim_info, rdim, algos.EnvelopeConfig(
             buffer_size=args.buffer_size, batch_size=args.batch_size,

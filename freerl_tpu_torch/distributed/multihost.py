@@ -12,8 +12,8 @@ returns False when nothing is configured. It joins on its own only under
 ``torchrun`` with ``WORLD_SIZE`` > 1 (``init_method="env://"``: its
 ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``).
 
-This module imports only torch, so a launcher can load it before anything
-else.
+This module imports only torch, and the package's ``__init__`` touches no
+device, so a launcher can load it before it picks a card.
 """
 from __future__ import annotations
 

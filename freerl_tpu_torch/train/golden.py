@@ -1,16 +1,21 @@
 """Golden-curve regression harness (counterpart:
 ``freerl_tpu/train/golden.py``; the specs, gates and acceptance rules are
-the JAX package's, copied; ``check`` and ``check_all`` are numpy only and
-read the same ``results/learning_curves/`` artifacts).
+the JAX package's, copied; ``check`` and ``check_all`` are numpy only).
+
+The port's artifacts live in a tree of their own, ``results/torch/``, which
+mirrors the JAX package's ``results/``: ``regenerate`` writes the port's
+curves under ``results/torch/learning_curves/`` (``OURS_ROOT``), ``check``
+reads "ours" from there, and a scalar gate's ``results/...`` glob is
+resolved under ``results/torch/``. So a port curve that was never
+regenerated reads as missing, and no committed artifact of the JAX package
+is written over or read as the port's.
 
 The reference's empirical validation is its committed 3-seed learning
 curves (SURVEY §4.2: ``*_seed_<s>.npy`` -> ``plot_learning_curves.py`` ->
 ``<algo>_N_seed.npy``). This harness makes that protocol a regression
-test: each :class:`GoldenSpec` names one of our committed curve artifacts
-(results/learning_curves/...), the matching reference artifact, and an
-acceptance rule expressed in final-window means. ``check_all()`` is run by
-tests/test_golden.py on every CI pass, so curve parity claimed in
-PARITY.md stays continuously verified against the actual files.
+test: each :class:`GoldenSpec` names one of our curve artifacts (under
+``OURS_ROOT``), the matching reference artifact, and an acceptance rule
+expressed in final-window means.
 
 Acceptance semantics: our final-``window`` mean must be >= the reference's
 final-window mean minus ``slack`` (one-sided — beating the reference is
@@ -26,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 
 OURS_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "results",
-                         "learning_curves")
+                         "torch", "learning_curves")
 # the reference FreeRL tree, checked out beside the packages; where it is
 # absent, every reference curve reads as missing
 REF_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "reference")
@@ -854,8 +859,10 @@ def check_scalar(gate: dict) -> dict:
     import glob
     import json
 
-    root = os.path.join(os.path.dirname(__file__), "..", "..")
-    paths = sorted(glob.glob(os.path.join(root, gate["glob"])))
+    # the gate's "results/..." glob, under the port's results tree
+    root = os.path.dirname(os.path.normpath(OURS_ROOT))
+    rel = gate["glob"].removeprefix("results/")
+    paths = sorted(glob.glob(os.path.join(root, rel)))
     ours = None
     if paths:
         with open(paths[-1]) as f:
@@ -890,8 +897,8 @@ def regenerate(spec: GoldenSpec, results_root: str = "results",
     pinned).
 
     Runs one CLI training per seed in ``spec.regen_seeds``, then stacks
-    the per-seed curves into ``<algo>.npy`` under the learning-curves
-    tree (``OURS_ROOT``). Returns the PNG's path, or the stacked curve's
+    the per-seed curves into ``<algo>.npy`` under the port's
+    learning-curves tree (``OURS_ROOT``). Returns the PNG's path, or the stacked curve's
     where matplotlib is not installed (the plot is then not drawn).
     """
     if not spec.regen:

@@ -1,8 +1,15 @@
 """The port's ``train/golden.py`` against the JAX package's: the same
 specs and gates, ``check_all`` rows equal on the same artifacts, and
 ``regenerate`` through the port's CLI on the CPU into ``tmp_path`` (no
-test writes into ``results/learning_curves/``)."""
+test writes into ``results/learning_curves/``). The port's curves have a
+tree of their own: by default it lies outside the JAX package's
+``results/learning_curves/``, which a regenerate leaves as it was."""
 import dataclasses
+import hashlib
+import importlib.util
+import os
+import shutil
+import sys
 
 import numpy as np
 import torch
@@ -20,11 +27,17 @@ def test_specs_and_gates_are_the_jax_packages():
 
 
 def test_check_all_rows_equal_jax(monkeypatch):
+    """Pointed at the JAX package's artifacts, the port's gates give the
+    JAX rows; with its own defaults, no JAX artifact is read as ours."""
     monkeypatch.setattr(golden, "REF_ROOT", jax_golden.REF_ROOT)
+    own = golden.check_all()
+    monkeypatch.setattr(golden, "OURS_ROOT", jax_golden.OURS_ROOT)
     rows, want = golden.check_all(), jax_golden.check_all()
     assert rows == want
     assert len(rows) == len(golden.SPECS) + len(golden.SCALAR_GATES)
     assert not [r for r in rows if r["status"] == "FAIL"]
+    read = [(r["env"], r["algo"]) for r in own if r["ours"] is not None]
+    assert not read, f"read as the port's: {read}"
 
 
 def _spec():
@@ -53,3 +66,42 @@ def test_regenerate_through_the_port_cli(tmp_path, monkeypatch):
                              device="cpu")
     assert path.endswith("DQN_1_seed.npy")
     assert np.load(path).shape[0] == 1
+
+
+def _tree_digest(root) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = \
+                    hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def test_default_root_leaves_the_jax_curves_alone(tmp_path, monkeypatch):
+    """C6: the port's default curves root lies outside the JAX package's
+    ``results/learning_curves/``; a default ``regenerate``, run from a copy
+    of ``golden.py`` in a temporary repo root beside a copy of that tree,
+    writes its stack under the port's root and leaves the tree as it
+    was."""
+    jax_root = os.path.realpath(jax_golden.OURS_ROOT)
+    ours = os.path.realpath(golden.OURS_ROOT)
+    assert os.path.commonpath([ours, jax_root]) != jax_root
+
+    src = os.path.join(tmp_path, "freerl_tpu_torch", "train", "golden.py")
+    os.makedirs(os.path.dirname(src))
+    shutil.copy(golden.__file__, src)
+    curves = os.path.join(tmp_path, "results", "learning_curves")
+    shutil.copytree(jax_root, curves)
+    before = _tree_digest(curves)
+    spec = importlib.util.spec_from_file_location("_golden_copy", src)
+    copy = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, spec.name, copy)
+    spec.loader.exec_module(copy)
+    assert os.path.realpath(copy.OURS_ROOT).startswith(str(tmp_path))
+    copy.regenerate(copy.GoldenSpec(*dataclasses.astuple(_spec())),
+                    results_root=str(tmp_path / "runs"), device="cpu")
+    assert _tree_digest(curves) == before
+    stacked = np.load(os.path.join(copy.OURS_ROOT, "CartPole-v1",
+                                   "DQN_1_seed.npy"))
+    assert stacked.shape[0] == 1 and stacked.shape[1] >= 25
