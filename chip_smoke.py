@@ -156,11 +156,29 @@ Phases (any failure raises, and the script exits non-zero):
     the bench's JSON with ``"vs_baseline": null``;
 26. ``scripts/torch_per_bench.py`` at 2^20 and batch 256: the tree sampler
     launches the sum-tree kernel once per ``sample``, cumsum never;
-27. determinism: the same seed twice on the card (DQN on CartPole-v1 seed
-    7 and PPO on Pendulum-v1 seed 3, the JAX package's
-    tests/test_determinism.py configs, and the main path, DQN + PER tree on
-    LunarLander-v2 at full width, 1024 envs, 64 vector steps); the records
-    and every tensor of the final states bit-equal;
+27. determinism: the same seed twice on the card, the records and every
+    tensor of the final states bit-equal, each run with an optimizer step
+    after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
+    seed 3 (the JAX package's tests/test_determinism.py configs), the main
+    path (DQN + PER tree on LunarLander-v2 at full width, 1024 envs, 64
+    vector steps); then, at the other phases' widths and cut in envs and
+    steps: DQN with uniform replay and Rainbow (B1) on LunarLander-v2 (256
+    envs, 32 steps), the family's DQN (double, dueling, 3-step) on
+    Pendulum-v1 through ``dis_to_con``; DDPG, TD3 and SAC on
+    LunarLanderContinuous-v2 and discrete DDPG (softmax, Gumbel) and SAC on
+    CartPole-v1 (256 envs, 16 steps); HER with DDPG on GoalPendulum-v1 (64
+    envs, one episode, 20 updates); PPO on BipedalWalker-v3 (8 envs, T 8)
+    and REINFORCE on CartPole-v1 (64 envs, T 64), one iteration; each
+    entry of ``MARL_PATHS`` (128 envs, 8 steps) and of
+    ``MARL_ONPOLICY_PATHS`` (one iteration of 64 envs, rMAPPO 32 x T 10);
+    GAIL on Pendulum-v1 (2048 expert pairs, one iteration of 256 steps),
+    CEM-GD3PG on Pendulum-v1 (2 episodes, 20 updates each), ENVELOPE on
+    deep-sea-treasure-v0 (256 envs, 16 steps); and, once with TF32 off and
+    once with cuDNN's TF32 at torch's default, pixel DQN with the small
+    trunk on PixelCartPole-v1 (64 envs, 32 steps), conv PPO on
+    PixelCartPole-v1 (32 envs, T 16) and one DQN update through the nature
+    trunk at (84, 84, 4), batch 64 (the grads and the new state); every
+    path is run and each that differs is named before the phase fails;
 28. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
@@ -2692,6 +2710,15 @@ def sumtree_count(run):
     return out, launches, time.time() - t0
 
 
+def pendulum_expert(obs: torch.Tensor) -> torch.Tensor:
+    """GAIL's expert on Pendulum-v1: pump energy with the swing, hold near
+    the top."""
+    cos, sin, thdot = obs[:, 0], obs[:, 1], obs[:, 2]
+    pump = torch.sign(thdot * cos + 1e-3) * 2.0
+    hold = -(10.0 * torch.atan2(sin, cos) + 1.0 * thdot)
+    return torch.clamp(torch.where(cos > 0.8, hold, pump), -2.0, 2.0)[:, None]
+
+
 def phase_gail() -> int:
     """GAIL on Pendulum-v1 with the learner config of
     scripts/gail_e2e.py (PPO 2x128, horizon 2048, minibatch 64, lr 1e-4,
@@ -2705,22 +2732,13 @@ def phase_gail() -> int:
     from freerl_tpu_torch.envs import make
 
     env = make("Pendulum-v1", device="cuda")
-
-    def expert_policy(obs):
-        # pump energy with the swing, hold near the top
-        cos, sin, thdot = obs[:, 0], obs[:, 1], obs[:, 2]
-        pump = torch.sign(thdot * cos + 1e-3) * 2.0
-        hold = -(10.0 * torch.atan2(sin, cos) + 1.0 * thdot)
-        return torch.clamp(torch.where(cos > 0.8, hold, pump), -2.0,
-                           2.0)[:, None]
-
     gail = GAIL(env.dim_info,
                 PPOConfig(horizon=2048, minibatch_size=64, num_envs=8,
                           actor_lr=1e-4, adv_norm=True, orthogonal_init=True),
                 GAILConfig(d_steps_per_iter=1, d_lr=1e-4), device="cuda")
 
     def run():
-        expert = collect_expert_data(env, expert_policy, 8192, seed=1)
+        expert = collect_expert_data(env, pendulum_expert, 8192, seed=1)
         return expert, train_gail(env, gail, expert, num_iterations=3,
                                   num_envs=8, seed=0)
 
@@ -2855,7 +2873,8 @@ def phase_pixel() -> int:
     if (info["updates"] != 63 or not len(returns)
             or not (returns.min() >= 1 and returns.max() <= 500)):
         raise AssertionError(f"pixel DQN: {info}, returns {returns}")
-    log(f"[pixel DQN PixelCartPole-v1] {info['env_steps']} env steps, "
+    log(f"[pixel DQN PixelCartPole-v1] conv trunk on cuDNN's deterministic "
+        f"algorithms: {info['env_steps']} env steps, "
         f"{info['updates']} learner steps, {info['episodes']} episodes "
         f"(returns {returns.min()} .. {returns.max()}) in "
         f"{info['elapsed_s']:.2f} s: {info['env_steps_per_s']:.0f} "
@@ -3959,14 +3978,54 @@ def phase_per_bench() -> int:
     return launches["tree"]
 
 
+def optimizers_of(x) -> list:
+    """Every optimizer of an algo state, through dataclasses, lists,
+    tuples and dicts (the walk of ``dp.state_tensors``)."""
+    if isinstance(x, torch.optim.Optimizer):
+        return [x]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [o for v in x for o in optimizers_of(v)]
+    return []
+
+
+def with_cudnn_tf32(run):
+    """``run`` with cuDNN's TF32 at torch's default (on), what a user gets;
+    the setting is put back after it."""
+    def wrapped():
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return run()
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+    return wrapped
+
+
 def determinism_runs() -> dict:
-    """Each config's run: the JAX package's tests/test_determinism.py
-    configs (DQN on CartPole-v1, seed 7; PPO on Pendulum-v1, seed 3) and
-    the main path (DQN + PER tree on LunarLander-v2 at full width, 1024
-    envs, 64 vector steps), on the card."""
-    from freerl_tpu_torch.algos import DQN, PPO, DQNConfig, PPOConfig
+    """Each config's run on the card, through the user's entry points:
+    ``(state, record, info)``. First the JAX package's
+    tests/test_determinism.py configs (DQN on CartPole-v1, seed 7; PPO on
+    Pendulum-v1, seed 3) and the main path (DQN + PER tree on
+    LunarLander-v2 at full width, 1024 envs, 64 vector steps); then one
+    config per algorithm class the other phases train, at their widths
+    (nets, batches, replay sizes, populations), cut in envs and steps to a
+    few chunks or one iteration with learner steps after the warm-up. The
+    pixel configs (pixel DQN with the small trunk, conv PPO, one DQN update
+    through the nature trunk at (84, 84, 4), batch 64) run with TF32 off,
+    as ``main`` sets it, and again with cuDNN's TF32 at torch's default."""
+    from freerl_tpu_torch.algos import (DQN, GAIL, PPO, CEMGD3PG, DQNConfig,
+                                        Envelope, GAILConfig, PPOConfig,
+                                        REINFORCEConfig, collect_expert_data,
+                                        train_cem_gd3pg, train_gail)
+    from freerl_tpu_torch.core.types import DimInfo, Transition
     from freerl_tpu_torch.envs import make
-    from freerl_tpu_torch.train import (OffPolicyConfig, OnPolicyConfig,
+    from freerl_tpu_torch.train import (HERConfig, MARLConfig,
+                                        OffPolicyConfig, OnPolicyConfig,
+                                        train_her, train_marl,
                                         train_offpolicy, train_onpolicy)
 
     def dqn_cartpole():
@@ -3993,31 +4052,193 @@ def determinism_runs() -> dict:
             seed=0, num_envs=1024, chunk_size=64, max_env_steps=1024 * 64,
             max_episodes=10**9))
 
-    return {"DQN CartPole-v1 seed 7": dqn_cartpole,
-            "PPO Pendulum-v1 seed 3": ppo_pendulum,
-            "main path DQN + PER tree LunarLander-v2": main_path}
+    def offpolicy(env_name, algo_name, algo_cfg, num_envs, chunk, chunks,
+                  start_steps=500, dis_to_con=False):
+        def run():
+            env = make(env_name, dis_to_con=dis_to_con, device="cuda")
+            algo = algo_classes(algo_name)[0](env.dim_info, algo_cfg,
+                                              device="cuda")
+            return train_offpolicy(env, algo, OffPolicyConfig(
+                seed=0, num_envs=num_envs, start_steps=start_steps,
+                chunk_size=chunk, max_env_steps=num_envs * chunk * chunks,
+                max_episodes=10**9))
+        return run
+
+    def onpolicy(env_name, algo_name, algo_cfg, num_envs, t):
+        def run():
+            env = make(env_name, device="cuda")
+            algo = algo_classes(algo_name)[0](env.dim_info, algo_cfg,
+                                              device="cuda")
+            return train_onpolicy(env, algo, OnPolicyConfig(
+                seed=0, num_envs=num_envs, horizon=num_envs * t,
+                max_env_steps=num_envs * t, max_episodes=10**9))
+        return run
+
+    def marl(label, num_envs=128, steps=8):
+        def run():
+            env_name, algo_name, extra = MARL_PATHS[label][:3]
+            env = marl_env(env_name, "cuda")
+            cls, cfg_cls = algo_classes(algo_name)
+            algo = cls(env, cfg_cls(num_envs=num_envs, **extra),
+                       device="cuda")
+            return train_marl(env, algo, MARLConfig(
+                seed=0, num_envs=num_envs, start_steps=500, chunk_size=4,
+                max_env_steps=num_envs * steps, max_episodes=10**9))
+        return run
+
+    def marl_onpolicy(label):
+        def run():
+            env_name, algo_name, extra, t = MARL_ONPOLICY_PATHS[label][:4]
+            num_envs = 64 if t < 10 else 32     # horizon 256 / 320
+            env = marl_env(env_name, "cuda")
+            algo = marl_onpolicy_algo(algo_name, env, "cuda",
+                                      num_envs=num_envs,
+                                      horizon=num_envs * t, **extra)
+            return train_onpolicy(env, algo, OnPolicyConfig(
+                seed=0, num_envs=num_envs, horizon=num_envs * t,
+                max_env_steps=num_envs * t, max_episodes=10**9))
+        return run
+
+    def her():
+        env = make("GoalPendulum-v1", device="cuda")
+        cls, cfg_cls = algo_classes("DDPG")
+        algo = cls(env.dim_info, cfg_cls(batch_size=256), device="cuda")
+        return train_her(env, algo, HERConfig(
+            num_envs=64, max_episodes=64, updates_per_episode=20))
+
+    def gail():
+        env = make("Pendulum-v1", device="cuda")
+        learner = GAIL(env.dim_info,
+                       PPOConfig(horizon=256, minibatch_size=64, num_envs=8,
+                                 actor_lr=1e-4, adv_norm=True,
+                                 orthogonal_init=True),
+                       GAILConfig(d_steps_per_iter=1, d_lr=1e-4),
+                       device="cuda")
+        expert = collect_expert_data(env, pendulum_expert, 2048, seed=1)
+        state, record, _ = train_gail(env, learner, expert, num_iterations=1,
+                                      num_envs=8, seed=0)
+        return (state, expert), record, {}
+
+    def cem():
+        env = make("Pendulum-v1", device="cuda")
+        return train_cem_gd3pg(env, CEMGD3PG(env.dim_info, device="cuda"),
+                               max_episodes=2, seed=0,
+                               updates_per_episode=20)
+
+    def envelope():
+        env = make("deep-sea-treasure-v0", device="cuda")
+        algo = Envelope(env.dim_info, env.reward_dim, device="cuda")
+        return train_offpolicy(env, algo, OffPolicyConfig(
+            seed=0, num_envs=256, start_steps=1000, chunk_size=8,
+            max_env_steps=256 * 16, max_episodes=10**9))
+
+    pixel_shape = make("PixelCartPole-v1", device="cpu").obs_shape
+
+    def dqn_nature_update():
+        shape, batch = (84, 84, 4), 64
+        obs_dim = int(np.prod(shape))
+        algo = DQN(DimInfo(obs_dim=obs_dim, action_dim=2), DQNConfig(
+            obs_shape=shape, conv_arch="nature", cnn_features=512,
+            batch_size=batch), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        state = algo.init(g)
+        done = torch.rand(batch, generator=g, device="cuda") < 0.1
+        b = Transition(
+            obs=torch.rand(batch, obs_dim, generator=g, device="cuda"),
+            action=torch.randint(0, 2, (batch,), generator=g,
+                                 device="cuda"),
+            reward=torch.randn(batch, generator=g, device="cuda"),
+            next_obs=torch.rand(batch, obs_dim, generator=g, device="cuda"),
+            done=done, episode_done=done)
+        state, _, _ = algo.update(state, b)
+        grads = torch.cat([p.grad.flatten() for p in state.net.parameters()])
+        return state, grads.cpu().numpy(), {}
+
+    family = DQNConfig(double=True, dueling=True, n_step=3)
+    pixel = {
+        "pixel DQN small trunk PixelCartPole-v1": offpolicy(
+            "PixelCartPole-v1", "DQN", DQNConfig(
+                buffer_size=100_000, batch_size=64, obs_shape=pixel_shape,
+                conv_arch="small", cnn_features=128), 64, 16, 2,
+            start_steps=256),
+        "conv PPO PixelCartPole-v1": onpolicy(
+            "PixelCartPole-v1", "PPO", PPOConfig(
+                horizon=32 * 16, num_envs=32, obs_shape=pixel_shape), 32, 16),
+        "DQN update through the nature trunk": dqn_nature_update,
+    }
+    runs = {
+        "DQN CartPole-v1 seed 7": dqn_cartpole,
+        "PPO Pendulum-v1 seed 3": ppo_pendulum,
+        "main path DQN + PER tree LunarLander-v2": main_path,
+        "DQN uniform LunarLander-v2": offpolicy(
+            "LunarLander-v2", "DQN", DQNConfig(
+                buffer_size=1_000_000, batch_size=256, hidden=(128,)),
+            256, 16, 2),
+        "Rainbow LunarLander-v2": offpolicy(
+            "LunarLander-v2", "DQN", DQNConfig(
+                buffer_size=1_000_000, batch_size=256, hidden=(128,),
+                **RAINBOW), 256, 16, 2),
+        "DQN double dueling 3-step Pendulum-v1 dis_to_con": offpolicy(
+            "Pendulum-v1", "DQN", family, 256, 16, 2, dis_to_con=True),
+        **{f"{name} LunarLanderContinuous-v2": offpolicy(
+            "LunarLanderContinuous-v2", name,
+            algo_classes(name)[1](batch_size=256, num_envs=256), 256, 8, 2)
+           for name in ("DDPG", "TD3", "SAC")},
+        **{f"discrete {label} CartPole-v1": offpolicy(
+            "CartPole-v1", name, algo_classes(name)[1](batch_size=256,
+                                                       **extra), 256, 8, 2)
+           for label, name, extra in (
+               ("DDPG softmax", "DDPG", dict()),
+               ("DDPG gumbel", "DDPG", dict(discrete_gumbel=True)),
+               ("SAC", "SAC", dict()))},
+        "HER DDPG GoalPendulum-v1": her,
+        "PPO BipedalWalker-v3": onpolicy(
+            "BipedalWalker-v3", "PPO", PPOConfig(horizon=8 * 8, num_envs=8),
+            8, 8),
+        "REINFORCE CartPole-v1": onpolicy("CartPole-v1", "REINFORCE",
+                                          REINFORCEConfig(), 64, 64),
+        **{f"marl {label}": marl(label) for label in MARL_PATHS},
+        **{f"marl onpolicy {label}": marl_onpolicy(label)
+           for label in MARL_ONPOLICY_PATHS},
+        "GAIL Pendulum-v1": gail,
+        "CEM-GD3PG Pendulum-v1": cem,
+        "ENVELOPE deep-sea-treasure-v0": envelope,
+    }
+    for name, run in pixel.items():
+        runs[f"{name} (TF32 off)"] = run
+        runs[f"{name} (cuDNN TF32 on)"] = with_cudnn_tf32(run)
+    return runs
 
 
 def phase_determinism() -> None:
-    """The same seed twice on the card: the episode records and every
-    tensor of the final algo state (nets, targets, optimizer state) must
-    be bit-equal."""
+    """The same seed twice on the card, for every config of
+    ``determinism_runs``: the records and every tensor of the final algo
+    state (nets, targets, optimizer state; the expert set for GAIL) must
+    be bit-equal, and the run must have taken an optimizer step."""
     from freerl_tpu_torch.distributed.dp import state_tensors
 
+    failed = []
     for name, run in determinism_runs().items():
-        (s1, r1, info), (s2, r2, _) = run(), run()
+        t0 = time.time()
+        (s1, r1, _), (s2, r2, _) = run(), run()
         t1, t2 = state_tensors(s1), state_tensors(s2)
+        steps = sum(adam_steps(o) for o in optimizers_of(s1))
         differ = [k for k, (a, b) in enumerate(zip(t1, t2))
                   if not torch.equal(a, b)]
-        if not (np.array_equal(r1, r2) and len(t1) == len(t2)
-                and not differ):
-            raise AssertionError(
-                f"determinism {name}: records equal "
-                f"{np.array_equal(r1, r2)}, state tensors "
-                f"{len(t1)} / {len(t2)}, differing {differ}")
-        log(f"[determinism] {name}: twice bit-equal: {len(r1)} episodes, "
+        same = np.array_equal(r1, r2) and len(t1) == len(t2) and not differ
+        verdict = "bit-equal" if same else "NOT bit-equal"
+        log(f"[determinism] {name}: twice {verdict}: {len(r1)} records, "
+            f"{steps} optimizer steps, "
             f"{len(t1)} state tensors ({sum(t.numel() for t in t1)} "
-            f"elements), {info['env_steps']} env steps")
+            f"elements), {time.time() - t0:.1f} s")
+        if not same:
+            failed.append(f"{name}: records equal {np.array_equal(r1, r2)}, "
+                          f"state tensors {len(t1)} / {len(t2)}, differing "
+                          f"{differ}")
+        elif not steps:
+            failed.append(f"{name}: no optimizer step")
+    if failed:
+        raise AssertionError("determinism: " + "; ".join(failed))
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,29 @@ Init, as flax's: each kernel ``he_uniform``, U(+-sqrt(6 / fan_in)) with
 ``fan_in = kh * kw * in``, and a zero bias (torch's Conv2d default is
 another init); the dense layer the torch scheme, U(+-1/sqrt(fan_in)) for
 weight and bias, as the JAX trunk's ``torch_default_init``.
+
+Determinism: the same seed gives the same run, as XLA gives it on the
+TPU. cuDNN's default algorithms for a convolution's backward are not
+deterministic on the card (another gradient on every run), so every
+convolution of the trunk, forward and backward, runs with cuDNN's
+deterministic algorithms and no autotuning (:func:`conv2d`). The two flags
+that pick them are process-global and read when cuDNN is called, and the
+backward runs in the caller's ``loss.backward()``, outside the trunk: so
+the backward sets them itself, and sets them back as it found them.
+Nothing else of the process's cuDNN settings is touched (whether cuDNN is
+on, TF32). In a single-threaded process a convolution outside the trunk
+keeps the process's algorithms; the two flags are process-global, so a
+CUDA convolution that another thread issues while a trunk convolution
+runs (forward, or backward on autograd's device thread) runs under them
+too. Nothing falls back to the default algorithms: where cuDNN
+has no deterministic one for a shape, its error reaches the caller. On
+the CPU the flags do nothing: :func:`conv2d` computes what ``F.conv2d``
+computes, bit for bit. The cost on the card is cuDNN's deterministic
+weight-gradient kernel (PERF.md §5).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -37,6 +57,48 @@ ARCHS = {
     "nature": ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
     "small": ((16, 3, 1), (32, 3, 2)),
 }
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms, without autotuning, inside the
+    block; ``deterministic`` and ``benchmark`` read as before after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` (padding 0, no dilation, one group) with its forward
+    and its backward under :func:`_deterministic_cudnn`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride):
+        ctx.save_for_backward(x, weight)
+        ctx.stride = stride
+        with _deterministic_cudnn():
+            return F.conv2d(x, weight, bias, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        s = ctx.stride
+        with _deterministic_cudnn():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]], [s, s], [0, 0], [1, 1],
+                False, [0, 0], 1, list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           stride: int) -> torch.Tensor:
+    """The trunk's convolution: ``F.conv2d(x, weight, bias, stride)`` on
+    cuDNN's deterministic algorithms, forward and backward."""
+    return _Conv2d.apply(x, weight, bias, stride)
 
 
 class ConvTrunk(nn.Module):
@@ -68,7 +130,7 @@ class ConvTrunk(nn.Module):
         lead = x.shape[:-1]
         x = x.reshape((-1,) + self.obs_shape).permute(0, 3, 1, 2)
         for weight, bias, s in zip(self.convs, self.biases, self.strides):
-            x = F.relu(F.conv2d(x, weight, bias, stride=s))
+            x = F.relu(conv2d(x, weight, bias, s))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = F.relu(self.dense(x))
         return x.reshape(lead + (self.features,))

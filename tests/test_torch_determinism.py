@@ -1,8 +1,9 @@
 """Determinism of the port on the CPU (the port's counterparts of the JAX
 package's tests/test_determinism.py, with its configs and seeds): one seed
 gives one run, bit for bit, in the episode record and in every tensor of
-the final algo state; two seeds give two runs. The card is held to the
-same in ``chip_smoke.py``'s ``determinism`` phase."""
+the final algo state; two seeds give two runs; the pixel paths (DQN and
+PPO through the conv trunks) too. The card is held to the same, on every
+training path, in ``chip_smoke.py``'s ``determinism`` phase."""
 import numpy as np
 import torch
 
@@ -46,6 +47,43 @@ def test_onpolicy_training_is_deterministic():
                                            num_envs=4), device="cpu")
         state, returns, _ = train_onpolicy(env, algo, OnPolicyConfig(
             seed=3, num_envs=4, max_episodes=16, horizon=256))
+        return state, returns
+
+    _assert_same_run(run(), run())
+
+
+def test_pixel_dqn_training_is_deterministic():
+    """DQN through the small conv trunk on PixelCartPole-v1."""
+    env = make("PixelCartPole-v1", device="cpu")
+
+    def run():
+        algo = DQN(env.dim_info, DQNConfig(
+            buffer_size=2_000, batch_size=16, hidden=(16,),
+            obs_shape=env.obs_shape, conv_arch="small", cnn_features=16),
+            device="cpu")
+        state, returns, info = train_offpolicy(env, algo, OffPolicyConfig(
+            seed=5, num_envs=4, max_episodes=10**6, max_env_steps=4 * 48,
+            start_steps=64, chunk_size=16))
+        assert info["updates"] > 0
+        return state, returns
+
+    _assert_same_run(run(), run())
+
+
+def test_conv_ppo_training_is_deterministic():
+    """PPO with the actor's and the critic's small conv trunks on
+    PixelCartPole-v1: one update of two epochs."""
+    env = make("PixelCartPole-v1", device="cpu")
+
+    def run():
+        algo = PPO(env.dim_info, PPOConfig(
+            horizon=64, K_epochs=2, minibatch_size=32, num_envs=4,
+            hidden=(16,), obs_shape=env.obs_shape, cnn_features=16),
+            device="cpu")
+        state, returns, info = train_onpolicy(env, algo, OnPolicyConfig(
+            seed=2, num_envs=4, horizon=64, max_env_steps=64,
+            max_episodes=10**6))
+        assert info["iterations"] == 1
         return state, returns
 
     _assert_same_run(run(), run())

@@ -267,3 +267,71 @@ def test_pixel_dqn_drives_train_offpolicy():
     _, returns, info = train_offpolicy(env, algo, cfg)
     assert info["updates"] > 0 and len(returns) >= 1
     assert np.isfinite(returns).all() and returns.min() >= 1
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_conv_trunk_bit_equal_to_plain_conv2d(arch, monkeypatch):
+    """The trunk's deterministic convolution computes what ``F.conv2d``
+    computes on the CPU, bit for bit: the features, and the gradients of
+    every parameter and of the input."""
+    import torch.nn.functional as F
+
+    from freerl_tpu_torch.nets import cnn
+
+    shape = ARCHS[arch]
+    trunk = ConvTrunk(shape, 24, arch, torch.Generator().manual_seed(3),
+                      device="cpu")
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.rand(6, int(np.prod(shape))).astype(np.float32))
+    g = torch.from_numpy(rng.randn(6, 24).astype(np.float32))
+    outs = []
+    for conv in (cnn.conv2d, F.conv2d):
+        monkeypatch.setattr(cnn, "conv2d", conv)
+        trunk.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        y = trunk(xi)
+        y.backward(g)
+        outs.append([y.detach(), xi.grad]
+                    + [p.grad for p in trunk.parameters()])
+    assert len(outs[0]) == 2 + len(list(trunk.parameters()))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("flags", [(True, False, False, True),
+                                   (True, True, False, False)])
+def test_conv_trunk_leaves_cudnn_flags_as_found(flags):
+    """Inside the trunk's convolutions, forward and backward, cuDNN runs
+    deterministic algorithms without autotuning, with ``enabled`` and
+    ``allow_tf32`` as the caller set them; after them every flag reads
+    what it read before."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    cudnn = torch.backends.cudnn
+    names = ("enabled", "benchmark", "deterministic", "allow_tf32")
+    seen = {}
+
+    class Flags(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name.startswith("convolution"):
+                seen.setdefault(name, []).append(
+                    tuple(getattr(cudnn, n) for n in names))
+            return func(*args, **(kwargs or {}))
+
+    before = tuple(getattr(cudnn, n) for n in names)
+    try:
+        for n, v in zip(names, flags):
+            setattr(cudnn, n, v)
+        trunk = ConvTrunk(ARCHS["small"], 8, "small", device="cpu")
+        x = torch.rand(3, int(np.prod(ARCHS["small"])), requires_grad=True)
+        with Flags():
+            trunk(x).sum().backward()
+        after = tuple(getattr(cudnn, n) for n in names)
+    finally:
+        for n, v in zip(names, before):
+            setattr(cudnn, n, v)
+    assert after == flags
+    inside = (flags[0], False, True, flags[3])
+    assert sorted(seen) == ["convolution", "convolution_backward"]
+    assert all(len(v) == 2 and set(v) == {inside} for v in seen.values())
