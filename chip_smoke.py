@@ -156,7 +156,17 @@ Phases (any failure raises, and the script exits non-zero):
     the bench's JSON with ``"vs_baseline": null``;
 26. ``scripts/torch_per_bench.py`` at 2^20 and batch 256: the tree sampler
     launches the sum-tree kernel once per ``sample``, cumsum never;
-27. determinism: the same seed twice on the card, the records and every
+27. the north-star run (``scripts/torch_northstar.py``'s ``run_point``: DQN
+    on LunarLander-v2, replay 2^20, batch 256, 4096 envs, 8 updates per
+    vector step) for 16 chunks of 64 vector steps: exactly 4,194,304 env
+    steps and 8,184 updates, a finite record, no sum-tree launch; its
+    steady env-steps/s with the card's name and power limit;
+28. the parity gate of ``golden.JAX_PARITY``: the port's committed curves
+    against the JAX package's curves of the same stem
+    (``golden.check_against_jax``); a row fails only under an open fault
+    of ``golden.OPEN_FAULTS``, and such a row must fail; an absent curve
+    reads ``missing``;
+29. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
     after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
     seed 3 (the JAX package's tests/test_determinism.py configs), the main
@@ -179,13 +189,13 @@ Phases (any failure raises, and the script exits non-zero):
     PixelCartPole-v1 (32 envs, T 16) and one DQN update through the nature
     trunk at (84, 84, 4), batch 64 (the grads and the new state); every
     path is run and each that differs is named before the phase fails;
-28. stop the processes the run started and that would outlive it (the
+30. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
-29. print one JSON line describing each kernel (with its launches on the
+31. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
-    on-policy, multi-agent, slice-6, slice-7, data-parallel, bench and
-    per-bench paths), the card line, and the result line.
+    on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
+    per-bench and north-star paths), the card line, and the result line.
 
 It needs no network, builds everything from the checkout, and leaves no
 process running when it exits, whether it passed or failed.
@@ -4210,6 +4220,71 @@ def determinism_runs() -> dict:
     return runs
 
 
+NORTHSTAR_ENVS, NORTHSTAR_UPB, NORTHSTAR_CHUNKS = 4096, 8, 16
+
+
+def phase_northstar() -> int:
+    """``scripts/torch_northstar.py``'s ``run_point`` at the north-star
+    point (4096 envs, 8 updates per vector step) for 16 chunks of 64 vector
+    steps: the exact env-step and update counts (learning starts on the
+    second vector step, past ``start_steps`` 4096), a finite record, no
+    sum-tree launch (uniform replay). Returns B1's launches."""
+    from freerl_tpu_torch.ops import sumtree
+    from scripts import torch_northstar
+
+    steps = NORTHSTAR_CHUNKS * 64
+    sumtree.launches = 0
+    returns, row = torch_northstar.run_point(
+        NORTHSTAR_ENVS, NORTHSTAR_UPB, steps * NORTHSTAR_ENVS, seed=0,
+        device="cuda")
+    launches = sumtree.launches
+    # updates on every vector step past start_steps (4096 env steps)
+    want = (steps * NORTHSTAR_ENVS,
+            (steps - 4096 // NORTHSTAR_ENVS) * NORTHSTAR_UPB)
+    if (row["env_steps"], row["updates"]) != want:
+        raise AssertionError(f"northstar: env_steps {row['env_steps']}, "
+                             f"updates {row['updates']}; expected {want}")
+    if not (len(returns) == row["episodes"] > 0
+            and np.isfinite(returns).all()):
+        raise AssertionError(f"northstar: record of {len(returns)} returns "
+                             f"for {row['episodes']} episodes, finite "
+                             f"{np.isfinite(returns).all()}")
+    if launches:
+        raise AssertionError(f"northstar: uniform replay launched the "
+                             f"sum-tree kernel {launches} times")
+    log(f"[northstar] {NORTHSTAR_ENVS} envs x {NORTHSTAR_UPB} updates, "
+        f"{NORTHSTAR_CHUNKS} chunks: {row['env_steps']} env steps, "
+        f"{row['updates']} updates, {row['episodes']} episodes (final-50 "
+        f"{row['final50']}), steady {row['steady_env_steps_per_s']} "
+        f"env-steps/s, wall {row['wall_s']} s, matmul precision "
+        f"{row['matmul_precision']}, sumtree launches {launches} | "
+        f"{row['card']}")
+    return launches
+
+
+def phase_golden_vs_jax() -> None:
+    """The parity gate over ``golden.JAX_PARITY``: each committed port curve
+    against the JAX package's curve of the same stem. A row fails the phase
+    if it fails its gate and no open fault (``golden.OPEN_FAULTS``) tracks
+    it, or if it is tracked and passes (the fault is then closed); an absent
+    curve reads ``missing``."""
+    from freerl_tpu_torch.train import golden
+
+    wrong = []
+    for s in golden.JAX_PARITY:
+        r = golden.check_against_jax(s)
+        key = f"{s.env}/{s.algo}"
+        fault = golden.OPEN_FAULTS.get(key)
+        log(f"[golden vs jax] {key}: {r['status']}"
+            f"{f' (open fault {fault})' if fault else ''}, ours {r['ours']} "
+            f"{r['ours_seeds']}, JAX {r['ref']} {r['ref_seeds']}, slack "
+            f"{r['slack']}")
+        if (r["status"] == "FAIL") != bool(fault):
+            wrong.append(f"{key}: {r['status']}, open fault {fault}")
+    if wrong:
+        raise AssertionError(f"golden vs jax: {wrong}")
+
+
 def phase_determinism() -> None:
     """The same seed twice on the card, for every config of
     ``determinism_runs``: the records and every tensor of the final algo
@@ -4313,6 +4388,8 @@ def main() -> int:
             kernel[f"launches_{driver}"] += launches
     kernel["launches_bench"] = timed("bench", phase_bench)
     kernel["launches_per_bench"] = timed("per bench", phase_per_bench)
+    kernel["launches_northstar"] = timed("northstar", phase_northstar)
+    timed("golden vs jax", phase_golden_vs_jax)
     timed("determinism", phase_determinism)
     left = stop_children()
     if left:
