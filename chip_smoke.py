@@ -162,9 +162,11 @@ Phases (any failure raises, and the script exits non-zero):
     steps and 8,184 updates, a finite record, no sum-tree launch; its
     steady env-steps/s with the card's name and power limit;
 28. the parity gate of ``golden.JAX_PARITY``: the port's committed curves
-    against the JAX package's curves of the same stem
+    against the JAX package's curves of the same stem, or, for a row keyed
+    ``@jax_head``, against the JAX package rerun at this commit on the CPU
     (``golden.check_against_jax``); a row fails only under an open fault
-    of ``golden.OPEN_FAULTS``, and such a row must fail; an absent curve
+    of ``golden.OPEN_FAULTS`` or a stale reference of
+    ``golden.STALE_REFERENCES``, and such a row must fail; an absent curve
     reads ``missing``;
 29. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
@@ -4264,23 +4266,32 @@ def phase_northstar() -> int:
 
 def phase_golden_vs_jax() -> None:
     """The parity gate over ``golden.JAX_PARITY``: each committed port curve
-    against the JAX package's curve of the same stem. A row fails the phase
-    if it fails its gate and no open fault (``golden.OPEN_FAULTS``) tracks
-    it, or if it is tracked and passes (the fault is then closed); an absent
-    curve reads ``missing``."""
+    against the JAX curve the row names (the JAX package's committed curve
+    of the same stem, or, for a row keyed ``@jax_head``, the JAX package
+    rerun at this commit). A row fails the phase if its curve is absent
+    (every row has a committed curve), or if its verdict breaks what it is
+    held to (``golden.breaks_hold``): it fails its gate and is not held to
+    fail, or it is held to fail (an open fault of ``golden.OPEN_FAULTS``,
+    or a stale reference of ``golden.STALE_REFERENCES``) and passes. A row
+    of ``golden.NOT_COMPARABLE`` is printed and held to nothing."""
     from freerl_tpu_torch.train import golden
 
     wrong = []
     for s in golden.JAX_PARITY:
         r = golden.check_against_jax(s)
-        key = f"{s.env}/{s.algo}"
-        fault = golden.OPEN_FAULTS.get(key)
-        log(f"[golden vs jax] {key}: {r['status']}"
-            f"{f' (open fault {fault})' if fault else ''}, ours {r['ours']} "
+        key = golden.row_key(s)
+        why = (f" (open fault {golden.OPEN_FAULTS[key]})"
+               if key in golden.OPEN_FAULTS else
+               f" (stale reference, {golden.STALE_REFERENCES[key]})"
+               if key in golden.STALE_REFERENCES else
+               f" (not comparable: {golden.NOT_COMPARABLE[key]})"
+               if key in golden.NOT_COMPARABLE else "")
+        log(f"[golden vs jax] {key}: {r['status']}{why}, ours {r['ours']} "
             f"{r['ours_seeds']}, JAX {r['ref']} {r['ref_seeds']}, slack "
             f"{r['slack']}")
-        if (r["status"] == "FAIL") != bool(fault):
-            wrong.append(f"{key}: {r['status']}, open fault {fault}")
+        if (r["status"] not in ("pass", "FAIL")
+                or golden.breaks_hold(key, r["status"])):
+            wrong.append(f"{key}: {r['status']}{why}")
     if wrong:
         raise AssertionError(f"golden vs jax: {wrong}")
 

@@ -892,13 +892,129 @@ def check_all(specs: Optional[List[GoldenSpec]] = None) -> List[dict]:
 
 # ---------------------------------------------------------------------------
 # parity with the JAX package: the port's curve of a stem held against the
-# JAX package's committed curve of the same stem. Torch's Philox and JAX's
-# threefry streams never agree, so the parity is statistical: ``check``'s
-# rule (mean gate with ``slack``, seed overlap, ``agg``, ``slack_mode``,
-# ``floor``) with the JAX curve as the reference.
+# JAX package's committed curve of the same stem, or against the JAX
+# package's curve of the same recipe rerun at this commit. Torch's Philox
+# and JAX's threefry streams never agree, so the parity is statistical:
+# ``check``'s rule (mean gate with ``slack``, seed overlap, ``agg``,
+# ``slack_mode``, ``floor``) with the JAX curve as the reference.
 # ---------------------------------------------------------------------------
 JAX_CURVES_ROOT = os.path.join(os.path.dirname(__file__), "..", "..",
                                "results", "learning_curves")
+# the JAX package rerun at this commit on the CPU (scripts/torch_jax_head.py):
+# a reference from today's JAX code for rows whose committed JAX curve dates
+# from an older commit; each env directory's provenance.json says how
+JAX_HEAD_ROOT = os.path.join(os.path.dirname(__file__), "..", "..",
+                             "results", "torch", "jax_head")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParityRow(GoldenSpec):
+    # the tree of JAX curves the row is held against: 'committed' (the JAX
+    # package's results/learning_curves/) or 'jax_head' (JAX_HEAD_ROOT)
+    ref: str = "committed"
+    # how the seeds are stacked: smoothed (alpha 0.9) as ``regenerate``
+    # stacks them, or raw and cut to the shortest, as scripts/r5_singles.py
+    smooth: bool = True
+
+
+def parity_row(spec: GoldenSpec, **changes) -> ParityRow:
+    """``spec`` as a :class:`ParityRow`, with ``changes`` applied."""
+    return dataclasses.replace(ParityRow(*dataclasses.astuple(spec)),
+                               **changes)
+
+
+def row_key(row: GoldenSpec) -> str:
+    """``ENV/STEM``, and ``@REF`` for a row held against another tree than
+    the committed JAX curves."""
+    ref = getattr(row, "ref", "committed")
+    key = f"{row.env}/{row.algo}"
+    return key if ref == "committed" else f"{key}@{ref}"
+
+
+def ref_root(row: GoldenSpec) -> str:
+    """The root of the JAX curves ``row`` is held against."""
+    return {"committed": JAX_CURVES_ROOT,
+            "jax_head": JAX_HEAD_ROOT}[getattr(row, "ref", "committed")]
+
+
+# the golden DQN recipe's seeds for a spread on both sides: SPECS[0]'s three,
+# then 1-14 but 10 (16 distinct seeds)
+DQN_LL_SEEDS16 = (0, 10, 100) + tuple(s for s in range(1, 15) if s != 10)
+
+# scripts/r5_singles.py's table (its lines 36-59), the reference-committed
+# configs of round 5: tag -> (algo, env, artifact stem, seeds, extra argv).
+# Every run takes 500 episodes, 8 envs and --fixed_reset; off-policy runs
+# take 8 envs x updates_per_burst 8 (1 update per env step)
+_UPB = ["--updates_per_burst", "8"]
+_R5_DQN = ["--batch_size", "256", "--buffer_size", "1000000",
+           "--start_steps", "500"] + _UPB
+R5_RUNS = {
+    "PPO_CartPole": ("PPO", "CartPole-v1", "PPO", (0, 10, 100),
+                     ["--horizon", "2048"]),
+    "PPO_Pendulum": ("PPO", "Pendulum-v1", "PPO", (0, 10, 100),
+                     ["--horizon", "2048"]),
+    "PPO_LunarLander": ("PPO", "LunarLander-v2", "PPO", (0, 10, 100),
+                        ["--horizon", "2048"]),
+    "PPO_BipedalWalker": ("PPO", "BipedalWalker-v3", "PPO", (0, 10, 100),
+                          ["--horizon", "2048"]),
+    "SAC_Pendulum": ("SAC", "Pendulum-v1", "SAC", (0,),
+                     ["--batch_size", "256", "--random_steps", "500"]
+                     + _UPB),
+    "TD3_Pendulum": ("TD3", "Pendulum-v1", "TD3", (0,),
+                     ["--batch_size", "256"] + _UPB),
+    "DDPG_Pendulum": ("DDPG", "Pendulum-v1", "DDPG_simple", (0, 10, 100),
+                      ["--batch_size", "256"] + _UPB),
+    "DDPG_discrete_CartPole": ("DDPG", "CartPole-v1", "DDPG_discrete",
+                               (0,), ["--batch_size", "256"] + _UPB),
+    "SAC_discrete_CartPole": ("SAC", "CartPole-v1", "SAC_discrete", (0,),
+                              ["--batch_size", "256",
+                               "--random_steps", "500"] + _UPB),
+    "DQN_FrozenLake": ("DQN", "FrozenLake-v1", "DQN", (0, 10, 100), _R5_DQN),
+    "DQN_Taxi": ("DQN", "Taxi-v3", "DQN", (100,), _R5_DQN),
+}
+# waits for the walker's vector step (ROADMAP P2)
+R5_LATER = ("PPO_BipedalWalker",)
+
+
+def r5_argv(tag: str, seed, num_envs: int = 8,
+            results_root: Optional[str] = None) -> list:
+    """The CLI argv scripts/r5_singles.py passes for one seed of ``tag``
+    (without ``--results_root`` and ``--no_tensorboard`` where
+    ``results_root`` is None)."""
+    algo, env_name, _, _, extra = R5_RUNS[tag]
+    out = ["--algo", algo, "--env_name", env_name, "--max_episodes", "500",
+           "--num_envs", str(num_envs), "--seed", str(seed), "--fixed_reset"]
+    if results_root is not None:
+        out += ["--results_root", results_root, "--no_tensorboard"]
+    return out + list(extra)
+
+
+# the JAX SPECS row whose gate a tag's rows take, where its stem is not the
+# one the JAX script writes: DDPG_discrete's gate is on the 3-draw stem,
+# FrozenLake's on the 10-seed sweep
+_R5_GATE_STEM = {"DDPG_discrete_CartPole": "DDPG_discrete_3_seed",
+                 "DQN_FrozenLake": "DQN_10_seed"}
+
+
+def r5_rows(tag: str) -> List[ParityRow]:
+    """The tag's two rows, against the JAX package's committed stack and
+    against JAX at this commit: the gate fields (window, slack, agg, mode,
+    overlap, floor) of the JAX SPECS row of its stem, the stem the JAX
+    script writes, its argv and seeds."""
+    algo, env_name, stem, seeds, _ = R5_RUNS[tag]
+    ours = f"{stem}_{len(seeds)}_seed"
+    gate = _R5_GATE_STEM.get(tag, ours)
+    spec = next(s for s in SPECS if (s.env, s.algo) == (env_name, gate))
+    note = f"r5 {tag}; JAX SPECS gate of {env_name}/{gate}"
+    if gate != ours:
+        note += f", held against the {ours} stack scripts/r5_singles.py " \
+                f"writes"
+    return [parity_row(spec, algo=ours, ref_path=f"{env_name}/{ours}.npy",
+                       ref_paths=(), pending=False, note=note,
+                       regen=tuple(r5_argv(tag, "{seed}")),
+                       regen_seeds=seeds, ref=ref, smooth=False)
+            for ref in ("committed", "jax_head")]
+
 
 JAX_PARITY: List[GoldenSpec] = [
     GoldenSpec(
@@ -915,22 +1031,70 @@ JAX_PARITY: List[GoldenSpec] = [
     dataclasses.replace(
         SPECS[0], ref_path="LunarLander-v2/DQN_3_seed.npy",
         note="JAX per-seed final-50 81.5 / 227.5 / 181.8 (mean 163.6)"),
-]
+    # the same row, and its recipe over 16 seeds, against the JAX package
+    # run at this commit
+    parity_row(SPECS[0], ref_path="LunarLander-v2/DQN_3_seed.npy",
+               ref="jax_head", note="SPECS[0] against JAX at this commit"),
+    parity_row(SPECS[0], algo="DQN_16_seed",
+               ref_path="LunarLander-v2/DQN_16_seed.npy",
+               regen_seeds=DQN_LL_SEEDS16, ref="jax_head",
+               note="SPECS[0]'s gate over 16 seeds, against JAX at this "
+                    "commit"),
+] + [row for tag in R5_RUNS if tag not in R5_LATER for row in r5_rows(tag)]
 
 
-# rows of JAX_PARITY whose committed port curve misses its gate, with the
-# open fault of ROADMAP's queue C that tracks each: such a row must read
-# FAIL until the fault is closed
+# rows of JAX_PARITY (by ``row_key``) whose committed port curve misses its
+# gate, with the open fault of ROADMAP's queue C that tracks each: such a
+# row must read FAIL until the fault is closed
 OPEN_FAULTS = {
     "LunarLander-v2/DQN_3_seed": "C9",
+    "LunarLander-v2/DQN_16_seed@jax_head": "C9",
+    "FrozenLake-v1/DQN_3_seed@jax_head": "C12",
 }
+# rows whose seeds train on another task in each package: ``--fixed_reset``
+# pins every episode to the start state the seed draws, and each package
+# draws it from its own stream (torch's generator, jax.random), so seed by
+# seed the two sides start from different states. Such a row is checked
+# and printed, but its verdict is held to nothing: it neither counts as a
+# pass nor opens a fault until the port is given the JAX package's starts
+# (ROADMAP A2). FrozenLake's start is the same state in both packages.
+NOT_COMPARABLE = {
+    f"{env}/{stem}{ref}": "fixed-reset starts differ"
+    for env, stem in (
+        ("CartPole-v1", "PPO_3_seed"), ("Pendulum-v1", "PPO_3_seed"),
+        ("LunarLander-v2", "PPO_3_seed"), ("Pendulum-v1", "SAC_1_seed"),
+        ("Pendulum-v1", "TD3_1_seed"), ("Pendulum-v1", "DDPG_simple_3_seed"),
+        ("CartPole-v1", "DDPG_discrete_1_seed"),
+        ("CartPole-v1", "SAC_discrete_1_seed"), ("Taxi-v3", "DQN_1_seed"))
+    for ref in ("", "@jax_head")}
+# rows whose committed port curve misses a committed JAX curve that the JAX
+# package at this commit misses too (ROADMAP's rule for a stale reference),
+# each with the file that shows it: such a row keeps its gate and must read
+# FAIL
+STALE_REFERENCES: dict = {}
+
+
+def must_fail(key: str) -> bool:
+    """Whether the row of ``key`` (``row_key``) is held to read FAIL: an
+    open fault tracks it, or its reference is stale."""
+    return key in OPEN_FAULTS or key in STALE_REFERENCES
+
+
+def breaks_hold(key: str, status: str) -> bool:
+    """Whether a checked row's ``status`` ('pass' or 'FAIL') breaks what
+    the row of ``key`` is held to: a row held to fail passes, or another
+    row fails; a row of ``NOT_COMPARABLE`` is held to nothing."""
+    if key in NOT_COMPARABLE:
+        return False
+    return (status == "FAIL") != must_fail(key)
 
 
 def check_against_jax(row: GoldenSpec) -> dict:
-    """``check`` of ``row`` with the reference read from the JAX package's
-    curves (``JAX_CURVES_ROOT``): a port curve that is absent reads
+    """``check`` of ``row`` with the reference read from the tree the row
+    names (``ref_root``; the JAX package's committed curves,
+    ``JAX_CURVES_ROOT``, by default): a port curve that is absent reads
     ``missing``."""
-    return check(row, ref_root=JAX_CURVES_ROOT)
+    return check(row, ref_root=ref_root(row))
 
 
 def _has_matplotlib() -> bool:
@@ -955,19 +1119,133 @@ def seed_curve(spec: GoldenSpec, run_dir: str, seed: int) -> np.ndarray:
     return np.load(os.path.join(run_dir, f"{algo_name}_seed_{seed}.npy"))
 
 
+def _label(spec: GoldenSpec) -> str:
+    return spec.algo.rsplit("_", 2)[0]     # 'DQN_3_seed' -> 'DQN'
+
+
+def seed_file(root: str, spec: GoldenSpec, seed: int) -> str:
+    """Where one seed's raw curve of ``spec``'s recipe is kept under
+    ``root``: ``<root>/<env>/seeds/<label>_seed_<seed>.npy``, shared by the
+    rows of one recipe whatever their seed count."""
+    return os.path.join(root, spec.env, "seeds",
+                        f"{_label(spec)}_seed_{seed}.npy")
+
+
+# flags of a CLI run that say where and how it runs, not what it trains,
+# with the count of values each takes
+_RUN_FLAGS = {"--results_root": 1, "--no_tensorboard": 0, "--device": 1}
+
+
+def recipe_of(command: str) -> list:
+    """The recipe of a recorded CLI command (a provenance ``command``): its
+    words after ``-m MODULE`` without the flags of ``_RUN_FLAGS``."""
+    import shlex
+
+    words = shlex.split(command)
+    words = words[words.index("-m") + 2:]
+    out, i = [], 0
+    while i < len(words):
+        n = _RUN_FLAGS.get(words[i])
+        if n is None:
+            out.append(words[i])
+        i += 1 if n is None else 1 + n
+    return out
+
+
+def kept_seed(root: str, spec: GoldenSpec, seed: int) -> bool:
+    """Whether one seed of ``spec``'s recipe is kept under ``root``: its
+    ``seed_file`` is there and the env's provenance records that it ran
+    this recipe. A file that another recipe made (the rows of one label
+    share a file name) or that has no record raises ``ValueError``: it
+    must not be stacked as this recipe's seed."""
+    import json
+
+    path = seed_file(root, spec, seed)
+    if not os.path.isfile(path):
+        return False
+    prov_path = os.path.join(root, spec.env, "provenance.json")
+    rec = None
+    if os.path.isfile(prov_path):
+        with open(prov_path) as f:
+            rec = json.load(f).get("seeds", {}).get(os.path.basename(path))
+    want = [a.format(seed=seed) for a in spec.regen]
+    if rec is None or recipe_of(rec["command"]) != want:
+        made = "no provenance record" if rec is None else rec["command"]
+        raise ValueError(
+            f"{path} is not a seed of {row_key(spec)}'s recipe {want} "
+            f"({made}): move it aside, or run the seed again (--force)")
+    return True
+
+
+def parse_run_log(text: str) -> dict:
+    """The run dir and the final counts that a CLI run prints (the JAX
+    package's and the port's print the same lines)."""
+    import re
+
+    run_dir = re.search(r"^model_dir: (.+)$", text, re.M).group(1).strip()
+    m = re.search(r"episodes: (\d+)\s+env_steps: (\d+)\s+steps/s: (\d+)",
+                  text)
+    return dict(run_dir=run_dir, episodes=int(m.group(1)),
+                env_steps=int(m.group(2)), steps_per_s=int(m.group(3)))
+
+
+def update_provenance(root: str, env: str, seeds: Optional[dict] = None,
+                      stacks: Optional[dict] = None) -> str:
+    """Merge records into ``<root>/<env>/provenance.json``: ``seeds`` maps
+    a kept seed file's name (``seed_file``) to how it was made, ``stacks``
+    a stem to the seed files it stacks. Returns the file's path."""
+    import json
+
+    path = os.path.join(root, env, "provenance.json")
+    prov = {}
+    if os.path.isfile(path):
+        with open(path) as f:
+            prov = json.load(f)
+    prov.setdefault("seeds", {}).update(seeds or {})
+    prov.setdefault("stacks", {}).update(stacks or {})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(prov, f, indent=1, sort_keys=True)
+    return path
+
+
+def stack_record(spec: GoldenSpec) -> dict:
+    """The ``stacks`` entry of ``update_provenance`` for ``spec``'s
+    stack."""
+    return {spec.algo: dict(
+        seeds=list(spec.regen_seeds), smoothed=getattr(spec, "smooth", True),
+        files=[os.path.basename(seed_file("", spec, s))
+               for s in spec.regen_seeds])}
+
+
+def stack_curves(spec: GoldenSpec, curves: List[np.ndarray],
+                 out_dir: str) -> str:
+    """Stack the per-seed curves as ``<out_dir>/<spec.algo>.npy``:
+    smoothed (alpha 0.9) and cut to the shortest, or, for a row with
+    ``smooth=False``, raw and cut to the shortest. Returns its path."""
+    from freerl_tpu_torch.train.plotting import save_seed_stack
+
+    if getattr(spec, "smooth", True):
+        return save_seed_stack(curves, _label(spec), out_dir)
+    t = min(len(c) for c in curves)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, spec.algo + ".npy")
+    np.save(path, np.stack([np.asarray(c)[:t] for c in curves]))
+    return path
+
+
 def save_stack(spec: GoldenSpec, curves: List[np.ndarray]) -> str:
     """Stack the per-seed curves into ``<label>_<k>_seed.npy`` under
-    ``OURS_ROOT/<env>``, with its plot. Returns the PNG's path, or the
-    stacked curve's where matplotlib is not installed (the plot is then not
+    ``OURS_ROOT/<env>`` (``stack_curves``), with its plot where they are
+    smoothed. Returns the PNG's path, or the stacked curve's where the
+    curves are raw or matplotlib is not installed (the plot is then not
     drawn)."""
-    from freerl_tpu_torch.train.plotting import (plot_learning_curve,
-                                                 save_seed_stack)
+    from freerl_tpu_torch.train.plotting import plot_learning_curve
 
     out_dir = os.path.join(OURS_ROOT, spec.env)
-    label = spec.algo.rsplit("_", 2)[0]     # 'DQN_3_seed' -> 'DQN'
-    if not _has_matplotlib():
-        return save_seed_stack(curves, label, out_dir)
-    return plot_learning_curve(curves, label=label, out_dir=out_dir,
+    if not getattr(spec, "smooth", True) or not _has_matplotlib():
+        return stack_curves(spec, curves, out_dir)
+    return plot_learning_curve(curves, label=_label(spec), out_dir=out_dir,
                                env_name=spec.env)
 
 
@@ -990,12 +1268,16 @@ def regenerate(spec: GoldenSpec, results_root: str = "results",
     return save_stack(spec, curves)
 
 
-def print_rows(rows: List[dict]) -> None:
-    for r in rows:
+def print_rows(rows: List[dict], keys: Optional[List[str]] = None) -> None:
+    """One line a row; ``keys`` (``row_key``) name the rows in place of
+    ``ENV ALGO``."""
+    for i, r in enumerate(rows):
         ours = "----" if r["ours"] is None else f"{r['ours']:8.1f}"
         ref = "----" if r["ref"] is None else f"{r['ref']:8.1f}"
-        print(f"{r['status']:6s} {r['env']:28s} {r['algo']:24s} "
-              f"ours={ours} ref={ref} slack={r['slack']:.0f} {r['note']}")
+        name = (f"{r['env']:28s} {r['algo']:24s}" if keys is None
+                else f"{keys[i]:53s}")
+        print(f"{r['status']:6s} {name} ours={ours} ref={ref} "
+              f"slack={r['slack']:.0f} {r['note']}")
 
 
 if __name__ == "__main__":
@@ -1019,7 +1301,11 @@ if __name__ == "__main__":
     rows = check_all()
     print_rows(rows)
     parity = [check_against_jax(s) for s in JAX_PARITY]
-    print("against the JAX package's curves (results/learning_curves/):")
-    print_rows(parity)
-    if any(r["status"] == "FAIL" for r in rows + parity):
+    keys = [row_key(s) for s in JAX_PARITY]
+    print("against the JAX package's curves (results/learning_curves/, and "
+          "@jax_head results/torch/jax_head/):")
+    print_rows(parity, keys)
+    if any(r["status"] == "FAIL" for r in rows) or any(
+            r["status"] == "FAIL" and breaks_hold(k, "FAIL")
+            for k, r in zip(keys, parity)):
         raise SystemExit(1)

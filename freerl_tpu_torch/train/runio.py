@@ -57,9 +57,15 @@ def make_dir(results_root: str, env_name: str, policy_name: str = "DQN",
     pattern = re.compile(rf"^{re.escape(prefix)}\d+$")
     existing = [d for d in os.listdir(env_dir) if pattern.match(d)]
     nums = [int(d.rsplit("_", 1)[-1]) for d in existing]
-    model_dir = os.path.join(env_dir, f"{prefix}{max(nums, default=0) + 1}")
-    os.makedirs(model_dir)
-    return model_dir
+    n = max(nums, default=0) + 1
+    while True:
+        model_dir = os.path.join(env_dir, f"{prefix}{n}")
+        try:
+            os.makedirs(model_dir)
+            return model_dir
+        except FileExistsError:
+            # a run started beside this one took the number first
+            n += 1
 
 
 class MetricsWriter:

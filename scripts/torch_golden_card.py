@@ -1,39 +1,51 @@
-"""Train the port's learning-curve rows, one card per run, and hold them
-against the JAX package's committed curves.
+"""Train the port's learning-curve rows on the card and hold them against
+the JAX curves each row names.
 
-    python3 scripts/torch_golden_card.py [--northstar 4096x8] [ENV/STEM ...]
-        [--device cuda|cpu] [--total_steps 150000000] [--deadline SECONDS]
+    python3 scripts/torch_golden_card.py [--northstar 4096x8] [ROW ...]
+        [--device cuda|cpu] [--per_card K] [--force]
+        [--total_steps 150000000] [--deadline SECONDS]
         [--results_root results/torch] [--log_dir build/golden_card]
 
 The jobs: the north-star point (``scripts/torch_northstar.py`` at
-``--northstar``, seed 0) and, for each ``ENV/STEM`` of
-``golden.JAX_PARITY``, one run of the row's recipe per seed through the
-port's CLI (``golden.regen_argv``, as ``golden.regenerate`` runs it). Each
-job is a process of its own. On the card each process sees one card
-(``CUDA_VISIBLE_DEVICES``): the jobs are dealt to the cards in turn, and a
-card runs its jobs one after another, so four cards run the north star and
-three seeds at once. ``--device cpu`` runs the jobs one after another on the
-CPU.
+``--northstar``, seed 0) and, for each ROW of ``golden.JAX_PARITY`` (a
+``golden.row_key``: ``ENV/STEM``, or ``ENV/STEM@jax_head``), one run of
+the row's recipe per seed through the port's CLI (``golden.regen_argv``,
+as ``golden.regenerate`` runs it). A seed whose raw curve is kept under
+``golden.OURS_ROOT`` (``golden.kept_seed``: its file is there and its
+provenance says it ran the row's recipe) is not run again, and its kept
+curve is stacked, unless ``--force`` asks to run it again; a kept file that
+another recipe made stops the script. Each job is a process of its own. On the
+card each process sees one card (``CUDA_VISIBLE_DEVICES``): the jobs are
+dealt to the cards in turn, and a card runs ``--per_card`` of its jobs at
+once and starts the next as one ends, so four cards at ``--per_card 1``
+run the north star and three seeds at once. ``--device cpu`` runs
+``--per_card`` jobs at once on the CPU.
 
-When every seed of a row has finished, the seeds are stacked with
-``golden.save_stack`` under ``golden.OURS_ROOT`` and the stack is printed as
-one JSON line. The north-star job writes ``<results_root>/northstar.json``
-and its tail curve under ``golden.OURS_ROOT``. Each job's output goes to
-``<log_dir>/<job>.log``, and every artifact is copied into ``--log_dir`` as
-well. Then the parity gate (``golden.check_against_jax``) runs over
-``golden.JAX_PARITY``, and a last JSON line gives each job and each row.
+Each seed that finishes keeps its raw curve under ``golden.OURS_ROOT``
+(``golden.seed_file``), and how it was made in the env's
+``provenance.json``; when every seed of a row is kept, the seeds are
+stacked with ``golden.save_stack`` under ``golden.OURS_ROOT`` and the stack
+is printed as one JSON line. The north-star job writes
+``<results_root>/northstar.json`` and its tail curve under
+``golden.OURS_ROOT``. Each job's output goes to ``<log_dir>/<job>.log``;
+``northstar.json`` is copied into ``--log_dir``, and the kept curves, the
+stacks and the provenance into ``<log_dir>/curves/``, laid out as
+``golden.OURS_ROOT``. Then the parity gate (``golden.check_against_jax``)
+runs over ``golden.JAX_PARITY``, and a last JSON line gives each job and
+each row.
 
 At ``--deadline`` seconds the jobs still running are stopped and read as
 cut; their rows stay absent (``missing``). No child outlives the script. It
-exits non-zero if a job failed or was cut, or a row fails its gate. It runs
-on the card; without one it exits non-zero unless ``--device cpu`` asks for
-the CPU.
+exits non-zero if a job failed or was cut, or a row fails its gate that is
+not held to fail (``golden.breaks_hold``). It runs on the card; without one
+it exits non-zero unless ``--device cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shlex
 import shutil
 import signal
 import subprocess
@@ -46,6 +58,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from chip_smoke import card_line  # noqa: E402
 from freerl_tpu_torch.train import golden  # noqa: E402
 
 NORTHSTAR = "LunarLander-v2/DQN_fast_1_seed"
@@ -53,13 +66,16 @@ NORTHSTAR = "LunarLander-v2/DQN_fast_1_seed"
 
 def parity_row(key: str) -> golden.GoldenSpec:
     for spec in golden.JAX_PARITY:
-        if f"{spec.env}/{spec.algo}" == key:
+        if golden.row_key(spec) == key:
             return spec
     raise KeyError(f"{key!r} is not a row of golden.JAX_PARITY")
 
 
-def make_jobs(northstar, keys, total_steps, device, results_root) -> list:
-    """One dict per process: its name, argv, and the row it feeds."""
+def make_jobs(northstar, keys, total_steps, device, results_root,
+              reuse: bool = False) -> list:
+    """One dict per process: its name, argv, and the row it feeds. With
+    ``reuse``, no job for a seed of the row's recipe that is kept
+    (``golden.kept_seed``)."""
     jobs = []
     if northstar:
         jobs.append(dict(
@@ -76,6 +92,8 @@ def make_jobs(northstar, keys, total_steps, device, results_root) -> list:
             raise ValueError(f"{key} has no recipe: the north star runs "
                              f"through --northstar")
         for seed in spec.regen_seeds:
+            if reuse and golden.kept_seed(golden.OURS_ROOT, spec, seed):
+                continue
             jobs.append(dict(
                 name=f"{spec.env}_{spec.algo}_seed_{seed}", row=key,
                 seed=seed, argv=[sys.executable, "-m", "freerl_tpu_torch.cli",
@@ -104,88 +122,114 @@ def deal(jobs: list, n_cards: int) -> list:
 
 
 def run_jobs(jobs: list, device: str, log_dir: str,
-             deadline: float | None) -> None:
-    """Run the jobs, one process per card at a time; fill each job's
-    ``rc`` (None: cut at the deadline or never started), ``card``,
-    ``seconds`` and ``log``."""
-    n_slots = torch.cuda.device_count() if device == "cuda" else 1
-    queues = deal(jobs, n_slots)
-    running = {}                    # slot -> (job, Popen, file, t0)
+             deadline: float | None, per_card: int = 1) -> None:
+    """Run the jobs, dealt to the cards in turn, ``per_card`` processes a
+    card at a time: a card starts its next job as one of its own ends.
+    Fill each job's ``rc`` (None: cut at the deadline or never started),
+    ``card``, ``seconds`` and ``log``."""
+    n_cards = torch.cuda.device_count() if device == "cuda" else 1
+    queues = deal(jobs, n_cards)
+    running = []                    # (card, job, Popen, file, t0)
     t_start = time.time()
     try:
         while any(queues) or running:
-            for slot in range(n_slots):
-                if slot in running or not queues[slot]:
-                    continue
-                job = queues[slot].pop(0)
-                env = dict(os.environ)
-                if device == "cuda":
-                    env["CUDA_VISIBLE_DEVICES"] = str(slot)
-                job.update(card=slot if device == "cuda" else None,
-                           log=os.path.join(log_dir, job["name"] + ".log"))
-                f = open(job["log"], "w")
-                proc = subprocess.Popen(job["argv"], cwd=ROOT, env=env,
-                                        stdout=f, stderr=subprocess.STDOUT,
-                                        start_new_session=True)
-                running[slot] = (job, proc, f, time.time())
-                print(f"[start] {job['name']} on "
-                      f"{'card ' + str(slot) if device == 'cuda' else 'cpu'}",
-                      flush=True)
-            for slot, (job, proc, f, t0) in list(running.items()):
+            for card in range(n_cards):
+                while queues[card] and sum(
+                        r[0] == card for r in running) < per_card:
+                    job = queues[card].pop(0)
+                    env = dict(os.environ)
+                    if device == "cuda":
+                        env["CUDA_VISIBLE_DEVICES"] = str(card)
+                    job.update(card=card if device == "cuda" else None,
+                               log=os.path.join(log_dir,
+                                                job["name"] + ".log"))
+                    f = open(job["log"], "w")
+                    proc = subprocess.Popen(
+                        job["argv"], cwd=ROOT, env=env, stdout=f,
+                        stderr=subprocess.STDOUT, start_new_session=True)
+                    running.append((card, job, proc, f, time.time()))
+                    where = f"card {card}" if device == "cuda" else "cpu"
+                    print(f"[start] {job['name']} on {where}", flush=True)
+            for item in list(running):
+                _, job, proc, f, t0 = item
                 if proc.poll() is None:
                     continue
                 f.close()
                 job.update(rc=proc.returncode,
                            seconds=round(time.time() - t0, 1))
-                del running[slot]
+                running.remove(item)
                 print(f"[end] {job['name']}: rc {job['rc']} in "
                       f"{job['seconds']} s", flush=True)
             if deadline is not None and time.time() - t_start > deadline:
                 print(f"[deadline] {deadline} s: stopping "
-                      f"{[j['name'] for j, *_ in running.values()]}",
-                      flush=True)
+                      f"{[r[1]['name'] for r in running]}", flush=True)
                 break
             time.sleep(1.0)
     finally:
-        for job, proc, f, t0 in running.values():
+        for _, job, proc, f, t0 in running:
             _stop(proc)
             f.close()
             job.update(rc=None, seconds=round(time.time() - t0, 1))
 
 
-def _model_dir(log: str) -> str:
-    with open(log) as f:
-        for line in f:
-            if line.startswith("model_dir: "):
-                return line.split(": ", 1)[1].strip()
-    raise RuntimeError(f"{log}: no model_dir line")
+def _keep(path: str, log_dir: str) -> None:
+    """Copy a file under ``golden.OURS_ROOT`` to the same place under
+    ``<log_dir>/curves/``."""
+    rel = os.path.relpath(path, golden.OURS_ROOT)
+    dst = os.path.join(log_dir, "curves", rel)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    shutil.copy(path, dst)
 
 
-def _mirror(path: str, log_dir: str, env: str) -> None:
-    shutil.copy(path, os.path.join(log_dir,
-                                   f"{env}__{os.path.basename(path)}"))
+def keep_seeds(jobs: list, log_dir: str) -> None:
+    """Keep the raw curve of every seed that finished under
+    ``golden.OURS_ROOT`` (``golden.seed_file``), also where its row is not
+    complete, with how it was made in the env's ``provenance.json``, and
+    copy them into ``log_dir``."""
+    for j in jobs:
+        if "seed" not in j or j.get("rc") != 0:
+            continue
+        spec = parity_row(j["row"])
+        with open(j["log"]) as f:
+            info = golden.parse_run_log(f.read())
+        run_dir = info.pop("run_dir")
+        curve = golden.seed_curve(spec, run_dir, j["seed"])
+        kept = golden.seed_file(golden.OURS_ROOT, spec, j["seed"])
+        os.makedirs(os.path.dirname(kept), exist_ok=True)
+        np.save(kept, curve)
+        prov = golden.update_provenance(golden.OURS_ROOT, spec.env, seeds={
+            os.path.basename(kept): dict(
+                command=shlex.join(["python", *[
+                    os.path.relpath(a, ROOT) if a.startswith(ROOT) else a
+                    for a in j["argv"][1:]]]),
+                card=None if j["card"] is None else card_line(),
+                seconds=j["seconds"], **info,
+                final50=round(float(curve[-50:].mean()), 4))})
+        for path in (kept, prov):
+            _keep(path, log_dir)
 
 
-def stack_rows(jobs: list, log_dir: str) -> None:
-    """Stack the seeds of every recipe row whose seeds all finished, print
-    each stack as one JSON line, and copy the curves into ``log_dir``."""
-    for key in dict.fromkeys(j["row"] for j in jobs if "seed" in j):
+def stack_rows(keys: list, jobs: list, log_dir: str) -> None:
+    """Stack the kept seeds of every recipe row whose jobs all finished and
+    whose seeds are all kept (``golden.kept_seed``), print each stack as
+    one JSON line, and copy it into ``log_dir``."""
+    for key in dict.fromkeys(keys):
         spec = parity_row(key)
-        mine = [j for j in jobs if j["row"] == key]
-        if any(j.get("rc") != 0 for j in mine):
+        paths = [golden.seed_file(golden.OURS_ROOT, spec, seed)
+                 for seed in spec.regen_seeds]
+        if (any(j.get("rc") != 0 for j in jobs if j["row"] == key)
+                or not all(golden.kept_seed(golden.OURS_ROOT, spec, seed)
+                           for seed in spec.regen_seeds)):
             print(f"[stack] {key}: not every seed finished; not stacked",
                   flush=True)
             continue
-        curves = []
-        for j in mine:
-            run_dir = _model_dir(j["log"])
-            curves.append(golden.seed_curve(spec, run_dir, j["seed"]))
-            for name in os.listdir(run_dir):
-                if name.endswith(".npy"):
-                    _mirror(os.path.join(run_dir, name), log_dir, spec.env)
+        curves = [np.load(p) for p in paths]
         golden.save_stack(spec, curves)
         path = os.path.join(golden.OURS_ROOT, spec.env, spec.algo + ".npy")
-        _mirror(path, log_dir, spec.env)
+        prov = golden.update_provenance(golden.OURS_ROOT, spec.env,
+                                        stacks=golden.stack_record(spec))
+        for p in (path, prov):
+            _keep(p, log_dir)
         stack = np.load(path)
         print(json.dumps({
             "stack": key, "shape": list(stack.shape),
@@ -200,9 +244,15 @@ def stack_rows(jobs: list, log_dir: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("rows", nargs="*",
-                    help="ENV/STEM rows of golden.JAX_PARITY with a recipe")
+                    help="rows of golden.JAX_PARITY with a recipe, by "
+                         "golden.row_key (ENV/STEM[@REF])")
     ap.add_argument("--northstar", default=None,
                     help="the north-star point NUM_ENVSxUPB, e.g. 4096x8")
+    ap.add_argument("--per_card", type=int, default=1,
+                    help="jobs a card (or, with --device cpu, the CPU) "
+                         "runs at once")
+    ap.add_argument("--force", action="store_true",
+                    help="run seeds again whose curve is kept already")
     ap.add_argument("--total_steps", type=int, default=150_000_000)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--deadline", type=float, default=None,
@@ -217,13 +267,15 @@ def main(argv=None) -> int:
               "the CPU", file=sys.stderr)
         return 1
     jobs = make_jobs(args.northstar, args.rows, args.total_steps,
-                     args.device, args.results_root)
+                     args.device, args.results_root, not args.force)
     os.makedirs(args.log_dir, exist_ok=True)
     from chip_smoke import stop_children
 
     try:
-        run_jobs(jobs, args.device, args.log_dir, args.deadline)
-        stack_rows(jobs, args.log_dir)
+        run_jobs(jobs, args.device, args.log_dir, args.deadline,
+                 args.per_card)
+        keep_seeds(jobs, args.log_dir)
+        stack_rows(args.rows, jobs, args.log_dir)
     finally:
         left = stop_children()
     for j in jobs:
@@ -233,18 +285,21 @@ def main(argv=None) -> int:
             tail = os.path.join(golden.OURS_ROOT, "LunarLander-v2",
                                 "DQN_fast_1_seed.npy")
             if os.path.isfile(tail):
-                _mirror(tail, args.log_dir, "LunarLander-v2")
+                _keep(tail, args.log_dir)
+    keys = [golden.row_key(s) for s in golden.JAX_PARITY]
     parity = [golden.check_against_jax(s) for s in golden.JAX_PARITY]
-    golden.print_rows(parity)
+    golden.print_rows(parity, keys)
     print(json.dumps({
         "jobs": [{k: j.get(k) for k in ("name", "card", "rc", "seconds")}
                  for j in jobs],
-        "parity": [{k: r[k] for k in ("env", "algo", "status", "ours", "ref",
-                                      "ours_seeds", "ref_seeds")}
-                   for r in parity],
+        "parity": [{"key": key, **{k: r[k] for k in (
+            "env", "algo", "status", "ours", "ref", "ours_seeds",
+            "ref_seeds")}} for key, r in zip(keys, parity)],
         "left_running": left}), flush=True)
     ok = (not left and all(j.get("rc") == 0 for j in jobs)
-          and not any(r["status"] == "FAIL" for r in parity))
+          and not any(r["status"] == "FAIL"
+                      and golden.breaks_hold(key, "FAIL")
+                      for key, r in zip(keys, parity)))
     return 0 if ok else 1
 
 

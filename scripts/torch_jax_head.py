@@ -1,0 +1,179 @@
+"""Rerun the JAX package's recipes on the CPU, as the reference from today's
+JAX code for the port's parity rows held against ``jax_head``.
+
+    python3 scripts/torch_jax_head.py ENV/STEM@jax_head [...] [--jobs 6]
+        [--out results/torch/jax_head] [--work build/jax_head] [--force]
+
+Each argument is a key (``golden.row_key``) of a row of
+``golden.JAX_PARITY`` whose reference is ``jax_head``. For each seed of the
+row's recipe the JAX package's own CLI runs as a command,
+``python -m freerl_tpu.cli <recipe> --results_root <work>/<env>
+--no_tensorboard``, with ``JAX_PLATFORMS=cpu``, ``--jobs`` commands at once.
+A seed's raw curve is kept as ``<out>/<env>/seeds/<label>_seed_<s>.npy``
+(``golden.seed_file``), and a seed kept already (``golden.kept_seed``: its
+file is there and its provenance says it ran the row's recipe) is not run
+again unless ``--force`` asks; a kept file that another recipe made stops
+the script. Then each row's seeds are stacked as
+``<out>/<env>/<stem>.npy`` with ``golden.stack_curves`` (smoothed as the
+JAX package's ``regenerate`` stacks them, or raw as
+``scripts/r5_singles.py`` does, as the row says), and
+``<out>/<env>/provenance.json`` records, for each seed, the command, the
+commit, the JAX version, the device, the seconds and the env steps.
+
+The script imports nothing of JAX and nothing of the JAX package; it exits
+non-zero if a seed's command fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shlex
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+
+from freerl_tpu_torch.train import golden  # noqa: E402
+
+
+def head_row(key: str) -> golden.ParityRow:
+    for row in golden.JAX_PARITY:
+        if golden.row_key(row) == key:
+            if getattr(row, "ref", None) != "jax_head" or not row.regen:
+                raise ValueError(f"{key}: not a jax_head row with a recipe")
+            return row
+    raise KeyError(f"{key!r} is not a row of golden.JAX_PARITY")
+
+
+def jax_argv(row: golden.ParityRow, seed: int, work: str) -> list:
+    """The JAX CLI's command line for one seed of ``row``'s recipe."""
+    return [sys.executable, "-m", "freerl_tpu.cli",
+            *[a.format(seed=seed) for a in row.regen],
+            "--results_root", os.path.join(work, row.env, f"seed_{seed}"),
+            "--no_tensorboard"]
+
+
+def _git(*args) -> str | None:
+    try:
+        return subprocess.run(["git", *args], cwd=ROOT, capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return None
+
+
+def jax_version() -> str:
+    out = subprocess.run([sys.executable, "-c",
+                          "import jax; print(jax.__version__)"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip()
+
+
+def run_seeds(tasks: list, n_jobs: int, log_dir: str) -> list:
+    """Run ``(row, seed, argv)`` tasks, ``n_jobs`` at once; returns one
+    record per task (``rc``, ``seconds``, ``log``)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    pending, running, done = list(tasks), [], []
+    while pending or running:
+        while pending and len(running) < n_jobs:
+            row, seed, argv = pending.pop(0)
+            log = os.path.join(log_dir, f"{row.env}_{row.algo}_{seed}.log")
+            f = open(log, "w")
+            proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+            running.append((row, seed, argv, proc, f, log, time.time()))
+            print(f"[start] {row.env} {row.algo} seed {seed}", flush=True)
+        for item in list(running):
+            row, seed, argv, proc, f, log, t0 = item
+            if proc.poll() is None:
+                continue
+            f.close()
+            running.remove(item)
+            rec = dict(row=row, seed=seed, argv=argv, rc=proc.returncode,
+                       seconds=round(time.time() - t0, 1), log=log)
+            done.append(rec)
+            print(f"[end] {row.env} {row.algo} seed {seed}: rc {rec['rc']} "
+                  f"in {rec['seconds']} s", flush=True)
+        time.sleep(1.0)
+    return done
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("rows", nargs="+", help="ENV/STEM@jax_head row keys")
+    ap.add_argument("--jobs", type=int, default=6,
+                    help="JAX CLI commands at once")
+    ap.add_argument("--out", default=golden.JAX_HEAD_ROOT)
+    ap.add_argument("--work", default=os.path.join(ROOT, "build",
+                                                   "jax_head"))
+    ap.add_argument("--force", action="store_true",
+                    help="rerun seeds whose curve is kept already")
+    args = ap.parse_args(argv)
+    rows = [head_row(k) for k in args.rows]
+    os.makedirs(args.work, exist_ok=True)
+    tasks, seen = [], set()
+    for row in rows:
+        for seed in row.regen_seeds:
+            path = golden.seed_file(args.out, row, seed)
+            if path in seen or (not args.force and golden.kept_seed(
+                    args.out, row, seed)):
+                continue
+            seen.add(path)
+            tasks.append((row, seed, jax_argv(row, seed, args.work)))
+    commit = _git("rev-parse", "HEAD")
+    clean = _git("status", "--porcelain", "--", "freerl_tpu") == ""
+    version = jax_version()
+    records = run_seeds(tasks, args.jobs, args.work)
+    failed = []
+    for rec in records:
+        row, seed = rec["row"], rec["seed"]
+        if rec["rc"] != 0:
+            failed.append(f"{golden.row_key(row)}:{seed}")
+            continue
+        with open(rec["log"]) as f:
+            info = golden.parse_run_log(f.read())
+        algo = row.regen[row.regen.index("--algo") + 1]
+        curve = np.load(os.path.join(info["run_dir"],
+                                     f"{algo}_seed_{seed}.npy"))
+        path = golden.seed_file(args.out, row, seed)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, curve)
+        golden.update_provenance(args.out, row.env, seeds={
+            os.path.basename(path): dict(
+                command="JAX_PLATFORMS=cpu " + shlex.join(
+                    ["python", *[os.path.relpath(a, ROOT)
+                                 if a.startswith(ROOT) else a
+                                 for a in rec["argv"][1:]]]),
+                commit=commit, freerl_tpu_clean=clean, jax=version,
+                device="cpu", seconds=rec["seconds"],
+                env_steps=info["env_steps"], episodes=info["episodes"],
+                steps_per_s=info["steps_per_s"],
+                final50=round(float(curve[-50:].mean()), 4))})
+    for row in rows:
+        if not all(golden.kept_seed(args.out, row, s)
+                   for s in row.regen_seeds):
+            print(f"[stack] {golden.row_key(row)}: seeds missing; not "
+                  f"stacked", flush=True)
+            continue
+        paths = [golden.seed_file(args.out, row, s) for s in row.regen_seeds]
+        out = golden.stack_curves(row, [np.load(p) for p in paths],
+                                  os.path.join(args.out, row.env))
+        golden.update_provenance(args.out, row.env,
+                                 stacks=golden.stack_record(row))
+        stack = np.load(out)
+        print(json.dumps({"stack": golden.row_key(row),
+                          "shape": list(stack.shape),
+                          "final50": [round(float(x), 2) for x in
+                                      stack[:, -50:].mean(1)]}), flush=True)
+    if failed:
+        print("FAILED:", failed, flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -34,8 +34,9 @@ def test_check_all_rows_equal_jax(monkeypatch):
     none reads the JAX curve's numbers."""
     monkeypatch.setattr(golden, "REF_ROOT", jax_golden.REF_ROOT)
     own = golden.check_all()
+    own_root = golden.OURS_ROOT
     ported = {(s.env, s.algo) for s in golden.SPECS if os.path.isfile(
-        os.path.join(golden.OURS_ROOT, s.env, s.algo + ".npy"))}
+        os.path.join(own_root, s.env, s.algo + ".npy"))}
     monkeypatch.setattr(golden, "OURS_ROOT", jax_golden.OURS_ROOT)
     rows, want = golden.check_all(), jax_golden.check_all()
     assert rows == want
@@ -44,8 +45,12 @@ def test_check_all_rows_equal_jax(monkeypatch):
     read = {(r["env"], r["algo"]): r["ours_seeds"] for r in own
             if r["ours"] is not None}
     assert set(read) == ported
-    jax_read = {(r["env"], r["algo"]): r["ours_seeds"] for r in want}
-    same = [k for k in read if read[k] == jax_read[k]]
+    # a saturated curve (CartPole's 500) gives both sides the same
+    # final-window numbers; a JAX curve read as the port's is the same array
+    same = [k for k in read if os.path.isfile(os.path.join(
+        jax_golden.OURS_ROOT, *k) + ".npy") and np.array_equal(
+        np.load(os.path.join(own_root, *k) + ".npy"),
+        np.load(os.path.join(jax_golden.OURS_ROOT, *k) + ".npy"))]
     assert not same, f"JAX curves read as the port's: {same}"
 
 
@@ -178,8 +183,7 @@ def test_check_against_jax_is_the_jax_check(case, tmp_path, monkeypatch):
     assert got["status"] == verdict
 
 
-@pytest.mark.parametrize("row", golden.JAX_PARITY,
-                         ids=lambda r: f"{r.env}/{r.algo}")
+@pytest.mark.parametrize("row", golden.JAX_PARITY, ids=golden.row_key)
 def test_missing_port_curve_reads_missing(row, tmp_path, monkeypatch):
     monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path))
     got = golden.check_against_jax(row)
@@ -191,7 +195,7 @@ def test_parity_rows_are_fixed():
     """The two rows' gates, their recipe (the JAX package's ``_DQN_LL``,
     seeds 0/10/100) and the JAX curves they read: north star final-1000
     196.85; DQN_3_seed per-seed final-50 81.5 / 227.5 / 181.8."""
-    fast, three = golden.JAX_PARITY
+    fast, three = golden.JAX_PARITY[:2]
     assert (fast.env, fast.algo, fast.window, fast.slack, fast.floor,
             fast.agg, fast.slack_mode) == (
         "LunarLander-v2", "DQN_fast_1_seed", 1000, 50.0, 123.0, "mean",
@@ -217,14 +221,196 @@ def test_regen_argv_is_regenerates():
         "--no_tensorboard", "--device", "cpu"]
 
 
+def _must_fail_reason(key: str) -> str:
+    if key in golden.OPEN_FAULTS:
+        return (f"{golden.OPEN_FAULTS[key]}: the committed port curve "
+                "misses its gate (ROADMAP queue C)")
+    return (f"stale reference: the JAX package at this commit misses the "
+            f"same gate ({golden.STALE_REFERENCES[key]})")
+
+
 @pytest.mark.parametrize("row", [
     pytest.param(r, marks=pytest.mark.xfail(
-        strict=True, reason=f"{golden.OPEN_FAULTS[f'{r.env}/{r.algo}']}: "
-        "the committed port curve misses its gate (ROADMAP queue C)"))
-    if f"{r.env}/{r.algo}" in golden.OPEN_FAULTS else r
-    for r in golden.JAX_PARITY], ids=lambda r: f"{r.env}/{r.algo}")
+        strict=True, reason=_must_fail_reason(golden.row_key(r))))
+    if golden.must_fail(golden.row_key(r)) else r
+    for r in golden.JAX_PARITY], ids=golden.row_key)
 def test_committed_port_curves_pass(row):
-    """The port's committed curves, each against the JAX curve of its
-    stem; a row under an open fault fails (strict)."""
+    """The port's committed curves, each against the JAX curve its row
+    names: every row has its curve, so a curve taken away fails here. A
+    row under an open fault or a stale reference fails (strict); a row of
+    ``NOT_COMPARABLE`` is read and gated, and its verdict held to
+    nothing."""
     got = golden.check_against_jax(row)
+    if golden.row_key(row) in golden.NOT_COMPARABLE:
+        assert got["status"] in ("pass", "FAIL"), got
+        return
     assert got["status"] == "pass", got
+
+
+def test_held_rows_are_rows():
+    """Every key that ``OPEN_FAULTS``, ``STALE_REFERENCES`` and
+    ``NOT_COMPARABLE`` hold names a row, and no row is in two of them."""
+    keys = {golden.row_key(r) for r in golden.JAX_PARITY}
+    held = [set(golden.OPEN_FAULTS), set(golden.STALE_REFERENCES),
+            set(golden.NOT_COMPARABLE)]
+    assert set().union(*held) <= keys
+    assert sum(map(len, held)) == len(set().union(*held))
+
+
+# ---------------------------------------------------------------------------
+# references from the JAX package at this commit (golden.JAX_HEAD_ROOT)
+# ---------------------------------------------------------------------------
+def test_check_reads_the_rows_own_reference(tmp_path, monkeypatch):
+    """A row keyed ``@jax_head`` reads its reference under
+    ``JAX_HEAD_ROOT``; a row of the committed tree, and a plain
+    ``GoldenSpec``, under ``JAX_CURVES_ROOT``, as before."""
+    for root, means, seed in (("ours", [90, 110, 100], 1),
+                              ("jax", [81.5, 227.5, 181.8], 2),
+                              ("head", [0, 10, 240], 3)):
+        os.makedirs(tmp_path / root / "Env-v0")
+        np.save(tmp_path / root / "Env-v0" / "X_3_seed.npy",
+                _seeds(means, seed=seed))
+    monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path / "ours"))
+    monkeypatch.setattr(golden, "JAX_CURVES_ROOT", str(tmp_path / "jax"))
+    monkeypatch.setattr(golden, "JAX_HEAD_ROOT", str(tmp_path / "head"))
+    spec = golden.GoldenSpec("Env-v0", "X_3_seed", "Env-v0/X_3_seed.npy",
+                             slack=50.0)
+    committed = golden.parity_row(spec)
+    head = golden.parity_row(spec, ref="jax_head")
+    assert [golden.row_key(r) for r in (spec, committed, head)] == [
+        "Env-v0/X_3_seed", "Env-v0/X_3_seed", "Env-v0/X_3_seed@jax_head"]
+    for row in (spec, committed):
+        assert golden.check_against_jax(row)["ref_seeds"] == [81.5, 227.5,
+                                                              181.8]
+    got = golden.check_against_jax(head)
+    assert got["ref_seeds"] == [0.0, 10.0, 240.0]
+    assert got["status"] == "pass"
+    assert golden.check_against_jax(committed)["status"] == "FAIL"
+
+
+def test_old_rows_are_unchanged():
+    """The first two rows, the north star and the golden row, keep their
+    keys, tree and fields."""
+    fast, three = golden.JAX_PARITY[:2]
+    assert [golden.row_key(r) for r in (fast, three)] == [
+        "LunarLander-v2/DQN_fast_1_seed", "LunarLander-v2/DQN_3_seed"]
+    assert type(fast) is type(three) is golden.GoldenSpec
+    assert golden.ref_root(three) == golden.JAX_CURVES_ROOT
+    assert dataclasses.astuple(three) == dataclasses.astuple(
+        dataclasses.replace(
+            jax_golden.SPECS[0], ref_path="LunarLander-v2/DQN_3_seed.npy",
+            note=three.note))
+
+
+@pytest.mark.parametrize("stem,seeds", [
+    ("DQN_3_seed", (0, 10, 100)),
+    ("DQN_16_seed", (0, 10, 100, 1, 2, 3, 4, 5, 6, 7, 8, 9, 11, 12, 13,
+                     14))])
+def test_jax_head_rows_take_specs0s_gate(stem, seeds):
+    """The golden recipe's rows against the JAX package at this commit:
+    SPECS[0]'s recipe, window, slack, agg, mode and overlap gate; 3 seeds,
+    or 16 distinct ones."""
+    row = next(r for r in golden.JAX_PARITY
+               if golden.row_key(r) == f"LunarLander-v2/{stem}@jax_head")
+    want = jax_golden.SPECS[0]
+    for f in ("window", "slack", "agg", "slack_mode", "overlap_gate",
+              "floor", "regen"):
+        assert getattr(row, f) == getattr(want, f), f
+    assert row.regen_seeds == seeds and len(set(seeds)) == len(seeds)
+    assert row.ref_path == f"LunarLander-v2/{stem}.npy" and row.smooth
+    assert golden.ref_root(row) == golden.JAX_HEAD_ROOT
+
+
+@pytest.mark.parametrize("stem", ["DQN_3_seed", "DQN_16_seed"])
+def test_jax_head_stacks_are_the_jax_packages_smoothing(stem):
+    """The committed JAX-at-HEAD stacks are the JAX package's own
+    ``aggregate_seeds`` of the committed seed curves, in the row's seed
+    order, and the provenance names the CPU and every seed's command."""
+    import json
+
+    from freerl_tpu.train.plotting import aggregate_seeds
+
+    root = os.path.join(golden.JAX_HEAD_ROOT, "LunarLander-v2")
+    with open(os.path.join(root, "provenance.json")) as f:
+        prov = json.load(f)
+    rec = prov["stacks"][stem]
+    curves = [np.load(os.path.join(root, "seeds", n)) for n in rec["files"]]
+    want, _, _ = aggregate_seeds(curves)
+    np.testing.assert_array_equal(np.load(os.path.join(root, stem + ".npy")),
+                                  want)
+    assert rec["files"] == [f"DQN_seed_{s}.npy" for s in rec["seeds"]]
+    for name in rec["files"]:
+        seed = prov["seeds"][name]
+        assert seed["device"] == "cpu" and seed["env_steps"] > 0
+        assert seed["command"].startswith("JAX_PLATFORMS=cpu python -m "
+                                          "freerl_tpu.cli --algo DQN")
+
+
+def test_jax_head_3_seed_stack_fails_the_committed_gate(monkeypatch):
+    """Rule (a) of C9: the JAX package at this commit, in the port's place,
+    misses SPECS[0]'s gate against the committed TPU curve, by the port's
+    ``check`` and by the JAX package's own."""
+    monkeypatch.setattr(golden, "OURS_ROOT", golden.JAX_HEAD_ROOT)
+    got = golden.check_against_jax(golden.JAX_PARITY[1])
+    assert got["status"] == "FAIL", got
+    assert got["ref"] - golden.JAX_PARITY[1].slack > got["ours"]
+    monkeypatch.setattr(jax_golden, "OURS_ROOT", golden.JAX_HEAD_ROOT)
+    monkeypatch.setattr(jax_golden, "REF_ROOT", golden.JAX_CURVES_ROOT)
+    spec = dataclasses.replace(jax_golden.SPECS[0],
+                               ref_path="LunarLander-v2/DQN_3_seed.npy",
+                               note=golden.JAX_PARITY[1].note)
+    assert jax_golden.check(spec) == got
+
+
+@pytest.mark.parametrize("held", ["open_fault", "stale_reference", "none",
+                                  "not_comparable", "missing"])
+def test_rows_held_to_fail(held, tmp_path, monkeypatch):
+    """A row under an open fault or a stale reference must read FAIL:
+    ``must_fail`` names it, and ``chip_smoke.py``'s ``golden vs jax``
+    passes while it fails and fails the phase once it passes; a row held
+    to nothing fails the phase when it fails; a row of ``NOT_COMPARABLE``
+    passes the phase whatever it reads; a row whose curve is absent fails
+    the phase."""
+    import chip_smoke
+
+    for root, means, seed in (("ours", [90, 110, 100], 1),
+                              ("jax", [81.5, 227.5, 181.8], 2)):
+        os.makedirs(tmp_path / root / "Env-v0")
+        np.save(tmp_path / root / "Env-v0" / "X_3_seed.npy",
+                _seeds(means, seed=seed))
+    monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path / "ours"))
+    monkeypatch.setattr(golden, "JAX_CURVES_ROOT", str(tmp_path / "jax"))
+    row = golden.GoldenSpec("Env-v0", "X_3_seed", "Env-v0/X_3_seed.npy",
+                            slack=50.0)
+    monkeypatch.setattr(golden, "JAX_PARITY", [row])
+    monkeypatch.setattr(golden, "OPEN_FAULTS", {})
+    monkeypatch.setattr(golden, "STALE_REFERENCES", {})
+    monkeypatch.setattr(golden, "NOT_COMPARABLE", {})
+    if held == "open_fault":
+        golden.OPEN_FAULTS["Env-v0/X_3_seed"] = "C99"
+    elif held == "stale_reference":
+        golden.STALE_REFERENCES["Env-v0/X_3_seed"] = "Env-v0/evidence.json"
+    elif held == "not_comparable":
+        golden.NOT_COMPARABLE["Env-v0/X_3_seed"] = "starts differ"
+    elif held == "missing":
+        os.remove(tmp_path / "ours" / "Env-v0" / "X_3_seed.npy")
+        assert golden.check_against_jax(row)["status"] == "missing"
+        with pytest.raises(AssertionError):
+            chip_smoke.phase_golden_vs_jax()
+        return
+    assert golden.check_against_jax(row)["status"] == "FAIL"
+    assert golden.must_fail("Env-v0/X_3_seed") == (
+        held in ("open_fault", "stale_reference"))
+    if held == "none":
+        with pytest.raises(AssertionError):
+            chip_smoke.phase_golden_vs_jax()
+        return
+    chip_smoke.phase_golden_vs_jax()
+    np.save(tmp_path / "ours" / "Env-v0" / "X_3_seed.npy",
+            _seeds([150, 170, 160], seed=3))
+    assert golden.check_against_jax(row)["status"] == "pass"
+    if held == "not_comparable":
+        chip_smoke.phase_golden_vs_jax()
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.phase_golden_vs_jax()

@@ -50,7 +50,7 @@ def test_jobs_of_the_two_rows():
 
 def test_unknown_or_recipe_less_rows_are_refused():
     with pytest.raises(KeyError):
-        card.make_jobs(None, ["LunarLander-v2/PPO_3_seed"], 1, "cuda", "r")
+        card.make_jobs(None, ["LunarLander-v2/PPO_9_seed"], 1, "cuda", "r")
     with pytest.raises(ValueError):
         card.make_jobs(None, [card.NORTHSTAR], 1, "cuda", "r")
 
@@ -82,15 +82,17 @@ def test_cpu_run_stacks_and_gates(tiny, tmp_path, capsys):
     last = json.loads(out[-1])
     assert [(j["name"], j["rc"]) for j in last["jobs"]] == [
         ("northstar_8x2", 0), ("CartPole-v1_DQN_1_seed_seed_3", 0)]
-    status = {f"{r['env']}/{r['algo']}": r["status"] for r in last["parity"]}
-    assert status == {card.NORTHSTAR: "missing",
-                      "LunarLander-v2/DQN_3_seed": "missing",
+    status = {r["key"]: r["status"] for r in last["parity"]}
+    assert status == {**{golden.row_key(r): "missing"
+                         for r in golden.JAX_PARITY},
                       "CartPole-v1/DQN_1_seed": "no-reference"}
     assert last["left_running"] == {}
     logs = set(os.listdir(tmp_path / "logs"))
     assert {"northstar_8x2.log", "CartPole-v1_DQN_1_seed_seed_3.log",
-            "northstar.json", "CartPole-v1__DQN_seed_3.npy",
-            "CartPole-v1__DQN_1_seed.npy"} <= logs
+            "northstar.json", "curves"} <= logs
+    curves = tmp_path / "logs" / "curves" / "CartPole-v1"
+    assert {"DQN_1_seed.npy", "provenance.json"} <= set(os.listdir(curves))
+    assert os.listdir(curves / "seeds") == ["DQN_seed_3.npy"]
     rows = json.load(open(tmp_path / "res" / "northstar.json"))["rows"]
     assert rows[0]["env_steps"] == 4608 and rows[0]["updates"] == 128
     assert not child_processes()

@@ -4,9 +4,11 @@ piece by piece against the JAX package, where its learning curve could
 part from the JAX package's: the epsilon-greedy exploration on one net and
 one batch of observations (statistics: the streams differ), the loop's
 cadence (when learning starts and how many updates each vector step
-takes), and the range of a uniform replay sample. The update, the polyak
-step and the env are held elsewhere (``test_torch_dqn.py``,
-``test_torch_slice.py``, ``test_torch_lunar_lander.py``)."""
+takes), the range of a uniform replay sample, and the whole recipe for
+its first 64 updates on the JAX run's draws (``tests/_torch_c9_bisect.py``'s
+lockstep). The update, the polyak step and the env are held elsewhere
+(``test_torch_dqn.py``, ``test_torch_slice.py``,
+``test_torch_lunar_lander.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,3 +124,51 @@ def test_uniform_sample_range_matches_jax(adds):
     idx = buf.sample_idx(torch.Generator().manual_seed(0), 20_000)
     want = set(range(min(8 * adds, 64)))
     assert set(np.asarray(jidx).tolist()) == set(idx.tolist()) == want
+
+
+def test_recipe_lockstep_with_jax():
+    """The recipe's own path (uniform replay, the default net, batch 256,
+    8 updates a vector step from env step 504) in both packages on the JAX
+    run's draws for 70 vector steps, 64 updates: same trajectory, no
+    greedy disagreement, and the learners one function: run in float64 on
+    the port's replay they agree to 1e-12 (measured 4.4e-16). In float32
+    the port stays within 1e-6 of its float64 run (measured 2.5e-7; a
+    permuted-batch twin 6e-8), so the port and JAX learners' float32 gap
+    (measured 3.5e-5) is the JAX package's own float32 departure from
+    float64 (measured 3.5e-5: its float32 update rounds more, and a ReLU
+    input within rounding of zero then takes the other branch) and the two
+    envs' rounding (4.9e-6), not a difference of the learners."""
+    from tests._torch_c9_bisect import lockstep
+
+    out = lockstep(70, every=70)
+    last = out["rows"][-1]
+    assert last["step"] == 70 and last["updates"] == 64
+    assert last["greedy_disagreements"] == 0
+    assert last["obs"] <= 1e-5 and last["reward"] <= 1e-3
+    assert last["params_f64"] <= 1e-12
+    assert last["params_port_f32_f64"] <= 1e-6
+    assert last["params_twin"] <= 1e-6
+    assert last["params_port_f32_f64"] < last["params_jax_f32_f64"]
+    assert out["replay"]["done"] == 0.0 and out["replay"]["action"] == 0.0
+
+
+def test_recipe_updates_one_by_one_against_float64():
+    """The recipe's learners one update at a time on the port's replay
+    from one init (``tests/_torch_c9_bisect.py``'s ``updates``): the
+    losses agree to float32 rounding; the port's float32 learner stays
+    within 1e-6 of its float64 run; the JAX package's gradient first
+    jumps at update 20, where a ReLU input 3.3e-7 off zero in float64
+    takes the other sign under the JAX learner's params and under the
+    port's keeps it."""
+    from tests._torch_c9_bisect import updates
+
+    out = updates(24, seed=0)
+    for row in out["rows"]:
+        for side in ("jax", "port"):
+            assert row[f"loss_{side}"] == pytest.approx(row["loss_f64"],
+                                                        rel=1e-5)
+        assert row["params_port"] <= 1e-6 and row["target_port"] <= 1e-6
+    kink = out["kink"]
+    assert kink["update"] == 20
+    assert abs(kink["relu_input_f64"]) <= 1e-6
+    assert kink["sign_flips_port"] == 0 and kink["sign_flips_jax"] >= 1

@@ -57,6 +57,20 @@ def test_make_dir_numbering_equals_jax(tmp_path):
     assert os.path.isdir(roots[0] / "CartPole-v1" / "DQN_Double_3")
 
 
+def test_make_dir_takes_the_next_number_a_concurrent_run_left(tmp_path,
+                                                              monkeypatch):
+    """Two runs started together read the same listing: the one that
+    creates its dir second takes the next free number instead of
+    failing (a stale listing stands for the other run)."""
+    from freerl_tpu_torch.train import runio
+
+    os.makedirs(tmp_path / "CartPole-v1" / "DQN_1")
+    os.makedirs(tmp_path / "CartPole-v1" / "DQN_2")
+    monkeypatch.setattr(runio.os, "listdir", lambda d: [])
+    got = make_dir(str(tmp_path), "CartPole-v1", "DQN")
+    assert os.path.basename(got) == "DQN_3" and os.path.isdir(got)
+
+
 @pytest.mark.parametrize("tensorboard", [False, True])
 def test_metrics_writer_curve(tmp_path, tensorboard):
     returns = np.random.RandomState(0).randn(7, 3).astype(np.float32)
