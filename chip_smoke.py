@@ -166,9 +166,15 @@ Phases (any failure raises, and the script exits non-zero):
     ``@jax_head``, against the JAX package rerun at this commit on the CPU
     (``golden.check_against_jax``); a row fails only under an open fault
     of ``golden.OPEN_FAULTS`` or a stale reference of
-    ``golden.STALE_REFERENCES``, and such a row must fail; an absent curve
+    ``golden.STALE_REFERENCES``, or with too few seeds for its gate
+    (``golden.UNDERPOWERED``), and such a row must fail; an absent curve
     reads ``missing``;
-29. determinism: the same seed twice on the card, the records and every
+29. the fixed-reset starts: for every env and seed of a ``--fixed_reset``
+    row of ``golden.JAX_PARITY``, the env built as the CLI builds it on the
+    card and on the CPU pins one start (the JAX package's draw, made on the
+    host): the draws bit-equal, the start observations within
+    ``golden.START_ULPS`` float32 ulps (``golden.same_start``);
+30. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
     after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
     seed 3 (the JAX package's tests/test_determinism.py configs), the main
@@ -191,10 +197,10 @@ Phases (any failure raises, and the script exits non-zero):
     PixelCartPole-v1 (32 envs, T 16) and one DQN update through the nature
     trunk at (84, 84, 4), batch 64 (the grads and the new state); every
     path is run and each that differs is named before the phase fails;
-30. stop the processes the run started and that would outlive it (the
+31. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
-31. print one JSON line describing each kernel (with its launches on the
+32. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
     on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
     per-bench and north-star paths), the card line, and the result line.
@@ -4271,9 +4277,10 @@ def phase_golden_vs_jax() -> None:
     rerun at this commit). A row fails the phase if its curve is absent
     (every row has a committed curve), or if its verdict breaks what it is
     held to (``golden.breaks_hold``): it fails its gate and is not held to
-    fail, or it is held to fail (an open fault of ``golden.OPEN_FAULTS``,
-    or a stale reference of ``golden.STALE_REFERENCES``) and passes. A row
-    of ``golden.NOT_COMPARABLE`` is printed and held to nothing."""
+    fail, or it is held to fail (an open fault of ``golden.OPEN_FAULTS``, a
+    stale reference of ``golden.STALE_REFERENCES``, or a row with too few
+    seeds for its gate, ``golden.UNDERPOWERED``) and passes. A row of
+    ``golden.NOT_COMPARABLE`` is printed and held to nothing."""
     from freerl_tpu_torch.train import golden
 
     wrong = []
@@ -4284,6 +4291,8 @@ def phase_golden_vs_jax() -> None:
                if key in golden.OPEN_FAULTS else
                f" (stale reference, {golden.STALE_REFERENCES[key]})"
                if key in golden.STALE_REFERENCES else
+               f" (underpowered, shown by {golden.UNDERPOWERED[key]})"
+               if key in golden.UNDERPOWERED else
                f" (not comparable: {golden.NOT_COMPARABLE[key]})"
                if key in golden.NOT_COMPARABLE else "")
         log(f"[golden vs jax] {key}: {r['status']}{why}, ours {r['ours']} "
@@ -4294,6 +4303,40 @@ def phase_golden_vs_jax() -> None:
             wrong.append(f"{key}: {r['status']}{why}")
     if wrong:
         raise AssertionError(f"golden vs jax: {wrong}")
+
+
+def phase_fixed_reset_starts() -> int:
+    """The start every ``--fixed_reset`` row's seeds pin, on the card
+    against the CPU (``golden.pinned``: the env built by ``cli.build_env``
+    from the row's recipe on each device): the pinned draws bit-equal (the
+    JAX package's draw, made on the host) and the start observations within
+    ``golden.START_ULPS`` float32 ulps (``golden.same_start``). Returns the
+    count of recipes and seeds held."""
+    from freerl_tpu_torch.train import golden
+
+    wrong, seen, ulps = [], set(), 0.0
+    for row in golden.JAX_PARITY:
+        if "--fixed_reset" not in row.regen:
+            continue
+        for seed in row.regen_seeds:
+            argv = [a.format(seed=seed) for a in row.regen]
+            if tuple(argv) in seen:
+                continue
+            seen.add(tuple(argv))
+            d_card, o_card = golden.pinned(row, seed, "cuda")
+            d_cpu, o_cpu = golden.pinned(row, seed, "cpu")
+            ulps = max(ulps, golden.start_ulps(o_card, o_cpu))
+            if not (torch.equal(d_card, d_cpu)
+                    and golden.same_start(o_card, o_cpu)):
+                wrong.append(f"{golden.row_key(row)} seed {seed}: draw "
+                             f"{d_card.tolist()} / {d_cpu.tolist()}, start "
+                             f"{o_card} / {o_cpu}")
+    log(f"[fixed-reset starts] {len(seen)} recipes and seeds: card and CPU "
+        f"pin one start in {len(seen) - len(wrong)}; the start observations "
+        f"part by at most {ulps:g} float32 ulps")
+    if wrong:
+        raise AssertionError(f"fixed-reset starts differ: {wrong}")
+    return len(seen)
 
 
 def phase_determinism() -> None:
@@ -4401,6 +4444,7 @@ def main() -> int:
     kernel["launches_per_bench"] = timed("per bench", phase_per_bench)
     kernel["launches_northstar"] = timed("northstar", phase_northstar)
     timed("golden vs jax", phase_golden_vs_jax)
+    timed("fixed-reset starts", phase_fixed_reset_starts)
     timed("determinism", phase_determinism)
     left = stop_children()
     if left:

@@ -78,9 +78,9 @@ def _apply_tricks(cfg, tricks, table, algo):
     return dataclasses.replace(cfg, **fields)
 
 
-def build(args):
-    """(env, algo) from the flags, both on ``args.device``."""
-    from freerl_tpu_torch import algos
+def build_env(args):
+    """The env of the flags on ``args.device``, with its ``--fixed_reset``
+    wrapper."""
     from freerl_tpu_torch.envs import make
 
     device = getattr(args, "device", "cuda")
@@ -125,7 +125,15 @@ def build(args):
 
         rs = getattr(args, "reset_seed", None)
         env = FixedResetWrapper(env, seed=args.seed if rs is None else rs)
+    return env
 
+
+def build(args):
+    """(env, algo) from the flags, both on ``args.device``."""
+    from freerl_tpu_torch import algos
+
+    device = getattr(args, "device", "cuda")
+    env = build_env(args)
     dev = dict(device=device)
     a, n_envs = args.algo, args.num_envs
     if a == "DQN":

@@ -8,19 +8,24 @@ state tensors, with every random draw passed in as an argument:
 
 ``draw_reset(n, generator)`` and ``draw_step(n, generator)`` make those draws
 from an explicit ``torch.Generator``, so a test can feed in exactly the
-numbers another implementation drew. The functions act on the whole batch
-at once; there is no vmap. Termination and truncation stay separate signals
-for the ``done`` (bootstrap) vs ``episode_done`` convention.
+numbers another implementation drew; ``key_reset_draw(key)`` makes, on the
+host, the one reset draw that the JAX package's env makes from a
+``jax.random`` key (``core/jax_prng.py``). The functions act on the whole
+batch at once; there is no vmap. Termination and truncation stay separate
+signals for the ``done`` (bootstrap) vs ``episode_done`` convention.
 
-``FixedResetWrapper`` pins every reset to one draw; ``DisToConWrapper``
-puts a discrete action set in front of a continuous-action env.
+``FixedResetWrapper`` pins every reset to the JAX package's start for the
+seed; ``DisToConWrapper`` puts a discrete action set in front of a
+continuous-action env.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 
 
@@ -48,6 +53,20 @@ class Env:
 
     def draw_step(self, n: int, generator: torch.Generator) -> torch.Tensor:
         raise NotImplementedError
+
+    def key_reset_draw(self, key: np.ndarray) -> torch.Tensor:
+        """The reset draw, ``(1, ...)`` as ``draw_reset`` lays it out, that
+        the JAX package's env makes in ``reset(key)`` from the
+        ``jax.random`` key ``key`` (a ``(2,)`` uint32 array), recomputed
+        with ``core/jax_prng.py``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no key_reset_draw: the JAX "
+            f"package's reset draw is not known for it")
+
+    def _host_draw(self, draw: np.ndarray, dtype=None) -> torch.Tensor:
+        """A host draw as a ``(1, ...)`` tensor on the env's device."""
+        out = torch.from_numpy(np.array(draw)[None])
+        return out.to(device=self.device, dtype=dtype)
 
     def observation(self, state) -> torch.Tensor:
         raise NotImplementedError
@@ -170,6 +189,9 @@ class _Wrapper(Env):
     def draw_step(self, n: int, generator: torch.Generator):
         return self.env.draw_step(n, generator)
 
+    def key_reset_draw(self, key: np.ndarray) -> torch.Tensor:
+        return self.env.key_reset_draw(key)
+
     def reset(self, reset_draw: torch.Tensor):
         return self.env.reset(reset_draw)
 
@@ -181,8 +203,10 @@ class _Wrapper(Env):
 
 
 class FixedResetWrapper(_Wrapper):
-    """Pin every reset (initial and auto-reset) to one start state: the
-    reset draw made once from ``seed``, whatever draw a reset is given.
+    """Pin every reset (initial and auto-reset) to one start state, whatever
+    draw a reset is given: the JAX package's, the draw its env makes in
+    ``reset(jax.random.PRNGKey(seed))`` (``env.key_reset_draw``), made once
+    on the host. An env without ``key_reset_draw`` raises here.
 
     The reference resets its env with the same seed every episode during
     single-agent training; with Noisy-net exploration that fixed start is
@@ -191,8 +215,7 @@ class FixedResetWrapper(_Wrapper):
 
     def __init__(self, env: Env, seed: int = 0):
         super().__init__(env)
-        generator = torch.Generator(device=env.device).manual_seed(seed)
-        self._reset_draw = env.draw_reset(1, generator)
+        self._reset_draw = env.key_reset_draw(jax_prng.prng_key(seed))
 
     def reset(self, reset_draw: torch.Tensor):
         n = reset_draw.shape[0]

@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 
@@ -305,6 +306,18 @@ class BipedalWalker(Env):
         u = torch.rand((n, N_DRAW), generator=generator, device=self.device)
         return torch.cat([u[:, :TERRAIN_LENGTH] * 2.0 - 1.0,
                           u[:, TERRAIN_LENGTH:] * 2e-3 - 1e-3], dim=1)
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        """The JAX walker's key chain: one split a terrain step, then the
+        spawn noise from the reset key's second half."""
+        k, k_n = jax_prng.split(key)
+        us = []
+        for _ in range(TERRAIN_LENGTH):
+            k, kr = jax_prng.split(k)
+            us.append(jax_prng.uniform(kr, (), -1.0, 1.0))
+        noise = jax_prng.uniform(k_n, (5, 2), -1e-3, 1e-3)
+        return self._host_draw(np.concatenate([np.stack(us),
+                                               noise.reshape(-1)]))
 
     def draw_step(self, n: int, generator: torch.Generator):
         return None

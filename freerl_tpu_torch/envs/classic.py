@@ -16,8 +16,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 
@@ -72,6 +74,9 @@ class CartPole(_Classic):
         """The initial (x, x_dot, theta, theta_dot), (n, 4), U(+-0.05)."""
         return _uniform(n, (4,), -0.05, 0.05, generator, self.device)
 
+    def key_reset_draw(self, key) -> torch.Tensor:
+        return self._host_draw(jax_prng.uniform(key, (4,), -0.05, 0.05))
+
     def reset(self, vals: torch.Tensor):
         state = CartPoleState(vals[:, 0], vals[:, 1], vals[:, 2], vals[:, 3],
                               self._t0(vals.shape[0]))
@@ -124,6 +129,9 @@ class _MountainCarBase(_Classic):
     def draw_reset(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """The initial position, (n,), U(-0.6, -0.4)."""
         return _uniform(n, (), -0.6, -0.4, generator, self.device)
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        return self._host_draw(jax_prng.uniform(key, (), -0.6, -0.4))
 
     def reset(self, pos: torch.Tensor):
         state = MountainCarState(pos, torch.zeros_like(pos),
@@ -221,6 +229,12 @@ class Pendulum(_Classic):
         theta = _uniform(n, (), -math.pi, math.pi, generator, self.device)
         theta_dot = _uniform(n, (), -1.0, 1.0, generator, self.device)
         return torch.stack([theta, theta_dot], dim=1)
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        k1, k2 = jax_prng.split(key)
+        return self._host_draw(np.stack([
+            jax_prng.uniform(k1, (), -math.pi, math.pi),
+            jax_prng.uniform(k2, (), -1.0, 1.0)]))
 
     def reset(self, vals: torch.Tensor):
         state = PendulumState(vals[:, 0], vals[:, 1], self._t0(vals.shape[0]))

@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 from freerl_tpu_torch.envs.classic import Pendulum, PendulumState
@@ -96,6 +98,13 @@ class GoalPendulum(Env):
         inner = self._inner.draw_reset(n, generator)
         u = torch.rand((n, 2), generator=generator, device=self.device)
         return torch.cat([inner, u], dim=1)
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        k_in, k_goal = jax_prng.split(key)
+        g1, g2 = jax_prng.split(k_goal)
+        u = np.stack([jax_prng.uniform(g, (), 0.0, 1.0) for g in (g1, g2)])
+        return torch.cat([self._inner.key_reset_draw(k_in),
+                          self._host_draw(u)], dim=1)
 
     def draw_step(self, n: int, generator: torch.Generator):
         return None

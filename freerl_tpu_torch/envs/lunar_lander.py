@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 
@@ -135,6 +136,11 @@ class _LunarLanderBase(Env):
         """Initial force f, (n, 2), uniform in +-INITIAL_RANDOM."""
         u = torch.rand((n, 2), generator=generator, device=self.device)
         return u * (2 * INITIAL_RANDOM) - INITIAL_RANDOM
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        k1, _ = jax_prng.split(key)
+        return self._host_draw(jax_prng.uniform(
+            k1, (2,), -INITIAL_RANDOM, INITIAL_RANDOM))
 
     def draw_step(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """Engine dispersion, (n, 2), uniform in +-1/SCALE."""

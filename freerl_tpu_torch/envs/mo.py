@@ -71,6 +71,10 @@ class DeepSeaTreasure(Env):
         """No draw: a placeholder (n,) tensor that gives the batch size."""
         return torch.zeros(n, dtype=torch.int32, device=self.device)
 
+    def key_reset_draw(self, key) -> torch.Tensor:
+        """No draw: the JAX env's reset reads no key."""
+        return self.draw_reset(1, None)
+
     def draw_step(self, n: int, generator: torch.Generator):
         return None
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 
@@ -121,6 +122,18 @@ class MPEBase(Env):
                               device=dev).to(torch.float32)
                 if self.n_goals else torch.zeros((n, 1), device=dev))
         return torch.cat([apos.reshape(n, -1), lpos.reshape(n, -1), goal], 1)
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        """The JAX scenarios' ``_reset_world``: the key split in two (three
+        where a goal is drawn), agents in +-1, landmarks in +-0.9."""
+        keys = jax_prng.split(key, 3 if self.n_goals else 2)
+        apos = jax_prng.uniform(keys[0], (self.n_agents, 2), -1.0, 1.0)
+        lpos = jax_prng.uniform(keys[1], (self.n_landmarks, 2), -0.9, 0.9)
+        goal = (jax_prng.randint(keys[2], (), 0, self.n_goals)
+                if self.n_goals else 0)
+        return self._host_draw(np.concatenate([
+            apos.reshape(-1), lpos.reshape(-1),
+            np.array([goal], np.float32)]))
 
     def draw_step(self, n: int, generator: torch.Generator):
         return None

@@ -84,6 +84,9 @@ class PixelCartPole(Env):
     def draw_reset(self, n: int, generator: torch.Generator) -> torch.Tensor:
         return self._inner.draw_reset(n, generator)
 
+    def key_reset_draw(self, key) -> torch.Tensor:
+        return self._inner.key_reset_draw(key)
+
     def draw_step(self, n: int, generator: torch.Generator):
         return self._inner.draw_step(n, generator)
 

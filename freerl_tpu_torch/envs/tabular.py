@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 
@@ -59,6 +60,10 @@ class _TabularEnv(Env):
         """Each row's start-state index, (n,), uniform."""
         return torch.randint(0, len(self.start_states), (n,),
                              generator=generator, device=self.device)
+
+    def key_reset_draw(self, key) -> torch.Tensor:
+        return self._host_draw(jax_prng.randint(
+            key, (), 0, len(self.start_states)), torch.int64)
 
     def draw_step(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """Gumbel noise, (n, K): -log(-log(U)), U uniform on [tiny, 1)."""

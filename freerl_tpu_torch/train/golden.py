@@ -940,6 +940,8 @@ def ref_root(row: GoldenSpec) -> str:
 # the golden DQN recipe's seeds for a spread on both sides: SPECS[0]'s three,
 # then 1-14 but 10 (16 distinct seeds)
 DQN_LL_SEEDS16 = (0, 10, 100) + tuple(s for s in range(1, 15) if s != 10)
+# ... and 32 more, 15-46, for the 48-seed spread (ROADMAP C9)
+DQN_LL_SEEDS48 = DQN_LL_SEEDS16 + tuple(range(15, 47))
 
 # scripts/r5_singles.py's table (its lines 36-59), the reference-committed
 # configs of round 5: tag -> (algo, env, artifact stem, seeds, extra argv).
@@ -1040,44 +1042,61 @@ JAX_PARITY: List[GoldenSpec] = [
                regen_seeds=DQN_LL_SEEDS16, ref="jax_head",
                note="SPECS[0]'s gate over 16 seeds, against JAX at this "
                     "commit"),
-] + [row for tag in R5_RUNS if tag not in R5_LATER for row in r5_rows(tag)]
+    parity_row(SPECS[0], algo="DQN_48_seed",
+               ref_path="LunarLander-v2/DQN_48_seed.npy",
+               regen_seeds=DQN_LL_SEEDS48, ref="jax_head",
+               note="SPECS[0]'s gate over 48 seeds, against JAX at this "
+                    "commit"),
+] + [row for tag in R5_RUNS if tag not in R5_LATER for row in r5_rows(tag)] + [
+    # the FrozenLake row over the 16 seeds, against JAX at this commit
+    dataclasses.replace(
+        r5_rows("DQN_FrozenLake")[1], algo="DQN_16_seed",
+        ref_path="FrozenLake-v1/DQN_16_seed.npy", regen_seeds=DQN_LL_SEEDS16,
+        note="r5 DQN_FrozenLake over 16 seeds; JAX SPECS gate of "
+             "FrozenLake-v1/DQN_10_seed"),
+]
 
 
 # rows of JAX_PARITY (by ``row_key``) whose committed port curve misses its
 # gate, with the open fault of ROADMAP's queue C that tracks each: such a
 # row must read FAIL until the fault is closed
 OPEN_FAULTS = {
-    "LunarLander-v2/DQN_3_seed": "C9",
-    "LunarLander-v2/DQN_16_seed@jax_head": "C9",
     "FrozenLake-v1/DQN_3_seed@jax_head": "C12",
+    "FrozenLake-v1/DQN_16_seed@jax_head": "C12",
+    "Pendulum-v1/SAC_1_seed": "C13",
+    "Pendulum-v1/SAC_1_seed@jax_head": "C13",
 }
-# rows whose seeds train on another task in each package: ``--fixed_reset``
-# pins every episode to the start state the seed draws, and each package
-# draws it from its own stream (torch's generator, jax.random), so seed by
-# seed the two sides start from different states. Such a row is checked
-# and printed, but its verdict is held to nothing: it neither counts as a
-# pass nor opens a fault until the port is given the JAX package's starts
-# (ROADMAP A2). FrozenLake's start is the same state in both packages.
-NOT_COMPARABLE = {
-    f"{env}/{stem}{ref}": "fixed-reset starts differ"
-    for env, stem in (
-        ("CartPole-v1", "PPO_3_seed"), ("Pendulum-v1", "PPO_3_seed"),
-        ("LunarLander-v2", "PPO_3_seed"), ("Pendulum-v1", "SAC_1_seed"),
-        ("Pendulum-v1", "TD3_1_seed"), ("Pendulum-v1", "DDPG_simple_3_seed"),
-        ("CartPole-v1", "DDPG_discrete_1_seed"),
-        ("CartPole-v1", "SAC_discrete_1_seed"), ("Taxi-v3", "DQN_1_seed"))
-    for ref in ("", "@jax_head")}
+# rows whose seeds would train on another task in each package, each with
+# the reason: checked and printed, but held to nothing (neither a pass nor a
+# fault). ``--fixed_reset`` pins every episode to the start the seed draws,
+# and the port pins the JAX package's own draw (``envs/base.py``,
+# ``core/jax_prng.py``), so no fixed-reset row is here; a test derives the
+# set from both packages' starts
+NOT_COMPARABLE: dict = {}
 # rows whose committed port curve misses a committed JAX curve that the JAX
 # package at this commit misses too (ROADMAP's rule for a stale reference),
 # each with the file that shows it: such a row keeps its gate and must read
 # FAIL
 STALE_REFERENCES: dict = {}
+# rows whose gate the port misses by the seed draw alone, each with the row
+# of the same recipe over more seeds that shows it (ROADMAP queue C's rule:
+# that row passes, and neither the final-50s nor the break-out counts of
+# the two sides differ, p >= 0.05): such a row keeps its gate and must read
+# FAIL. C9 closed so: over 48 seeds a side the port's mean final-50 is
+# 96.1 against 106.2, and 24 against 25 seeds break out
+UNDERPOWERED = {
+    "LunarLander-v2/DQN_3_seed": "LunarLander-v2/DQN_48_seed@jax_head",
+    "LunarLander-v2/DQN_16_seed@jax_head":
+        "LunarLander-v2/DQN_48_seed@jax_head",
+}
 
 
 def must_fail(key: str) -> bool:
     """Whether the row of ``key`` (``row_key``) is held to read FAIL: an
-    open fault tracks it, or its reference is stale."""
-    return key in OPEN_FAULTS or key in STALE_REFERENCES
+    open fault tracks it, its reference is stale, or its seeds are too few
+    for its gate."""
+    return (key in OPEN_FAULTS or key in STALE_REFERENCES
+            or key in UNDERPOWERED)
 
 
 def breaks_hold(key: str, status: str) -> bool:
@@ -1152,12 +1171,67 @@ def recipe_of(command: str) -> list:
     return out
 
 
-def kept_seed(root: str, spec: GoldenSpec, seed: int) -> bool:
+def pinned(spec: GoldenSpec, seed: int, device: str = "cpu"):
+    """What every episode of one seed of ``spec``'s recipe begins from, as
+    the port's CLI builds its env on ``device`` (``cli.build_env``): the
+    pinned reset draw (on the CPU) and the start observation (a list of
+    floats), or None where the recipe takes no ``--fixed_reset``."""
+    import torch
+
+    from freerl_tpu_torch import cli
+
+    argv = [a.format(seed=seed) for a in spec.regen]
+    if "--fixed_reset" not in argv:
+        return None
+    env = cli.build_env(cli.parser().parse_args(argv + ["--device", device]))
+    _, obs = env.reset(env.draw_reset(1, torch.Generator(device=device)))
+    return (env._reset_draw.cpu(),
+            [float(x) for x in obs[0].reshape(-1).tolist()])
+
+
+def pinned_start(spec: GoldenSpec, seed: int,
+                 device: str = "cpu") -> Optional[list]:
+    """The start observation of ``pinned``, or None."""
+    got = pinned(spec, seed, device)
+    return None if got is None else got[1]
+
+
+# how many float32 ulps two computations of one start may part by: the
+# devices and the packages compute cos, sin and the physics of one draw with
+# their own float32 kernels (PyTorch's CUDA division by a scalar multiplies
+# by its reciprocal; XLA fuses the JAX env's scaling), and LunarLander's
+# start velocity parts by 2 ulps between the H100 and the CPU
+START_ULPS = 2
+
+
+def start_ulps(a: list, b: list) -> float:
+    """The largest distance between two start observations of one shape,
+    value by value, in float32 ulps (of the larger of the two values)."""
+    x, y = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ulp = np.maximum(np.spacing(np.abs(x)), np.spacing(np.abs(y)))
+    gap = np.abs(x.astype(np.float64) - y.astype(np.float64))
+    return float(np.max(gap / ulp.astype(np.float64), initial=0.0))
+
+
+def same_start(a: Optional[list], b: Optional[list]) -> bool:
+    """Whether two recorded start observations are one start: as many
+    values, each within ``START_ULPS`` float32 ulps of the other's."""
+    if a is None or b is None:
+        return a is b
+    return (np.shape(a) == np.shape(b)
+            and start_ulps(a, b) <= START_ULPS)
+
+
+def kept_seed(root: str, spec: GoldenSpec, seed: int,
+              start: Optional[list] = None) -> bool:
     """Whether one seed of ``spec``'s recipe is kept under ``root``: its
     ``seed_file`` is there and the env's provenance records that it ran
-    this recipe. A file that another recipe made (the rows of one label
-    share a file name) or that has no record raises ``ValueError``: it
-    must not be stacked as this recipe's seed."""
+    this recipe, and, where the recipe takes ``--fixed_reset``, from the
+    start ``start`` (``same_start``; by default the one the port pins now,
+    ``pinned_start``). A file that another recipe made (the
+    rows of one label share a file name), that has no record, or whose
+    record names no start or another one raises ``ValueError``: it must not
+    be stacked as this recipe's seed."""
     import json
 
     path = seed_file(root, spec, seed)
@@ -1174,6 +1248,14 @@ def kept_seed(root: str, spec: GoldenSpec, seed: int) -> bool:
         raise ValueError(
             f"{path} is not a seed of {row_key(spec)}'s recipe {want} "
             f"({made}): move it aside, or run the seed again (--force)")
+    if "--fixed_reset" in want:
+        start = pinned_start(spec, seed) if start is None else start
+        if not same_start(rec.get("start"), start):
+            made = ("no start record" if "start" not in rec
+                    else f"start {rec['start']}")
+            raise ValueError(
+                f"{path} ran {row_key(spec)}'s recipe from another start "
+                f"than {start} ({made}): run the seed again (--force)")
     return True
 
 

@@ -2,7 +2,7 @@
 the JAX curves each row names.
 
     python3 scripts/torch_golden_card.py [--northstar 4096x8] [ROW ...]
-        [--device cuda|cpu] [--per_card K] [--force]
+        [--device cuda|cpu] [--per_card K] [--force] [--seeds S ...]
         [--total_steps 150000000] [--deadline SECONDS]
         [--results_root results/torch] [--log_dir build/golden_card]
 
@@ -10,11 +10,14 @@ The jobs: the north-star point (``scripts/torch_northstar.py`` at
 ``--northstar``, seed 0) and, for each ROW of ``golden.JAX_PARITY`` (a
 ``golden.row_key``: ``ENV/STEM``, or ``ENV/STEM@jax_head``), one run of
 the row's recipe per seed through the port's CLI (``golden.regen_argv``,
-as ``golden.regenerate`` runs it). A seed whose raw curve is kept under
-``golden.OURS_ROOT`` (``golden.kept_seed``: its file is there and its
-provenance says it ran the row's recipe) is not run again, and its kept
-curve is stacked, unless ``--force`` asks to run it again; a kept file that
-another recipe made stops the script. Each job is a process of its own. On the
+as ``golden.regenerate`` runs it); ``--seeds`` runs only those of a row's
+seeds, so a long row can be spread over several calls. A seed whose raw
+curve is kept under ``golden.OURS_ROOT`` (``golden.kept_seed``: its file is
+there and its provenance says it ran the row's recipe, from the start the
+port pins now where the recipe takes ``--fixed_reset``) is not run again,
+and its kept curve is stacked, unless ``--force`` asks to run it again; a
+kept file that another recipe made, or that ran from another start, stops
+the script. Each job is a process of its own. On the
 card each process sees one card (``CUDA_VISIBLE_DEVICES``): the jobs are
 dealt to the cards in turn, and a card runs ``--per_card`` of its jobs at
 once and starts the next as one ends, so four cards at ``--per_card 1``
@@ -23,9 +26,10 @@ run the north star and three seeds at once. ``--device cpu`` runs
 
 Each seed that finishes keeps its raw curve under ``golden.OURS_ROOT``
 (``golden.seed_file``), and how it was made in the env's
-``provenance.json``; when every seed of a row is kept, the seeds are
-stacked with ``golden.save_stack`` under ``golden.OURS_ROOT`` and the stack
-is printed as one JSON line. The north-star job writes
+``provenance.json`` (under ``--fixed_reset`` with the start observation it
+pinned, ``golden.pinned_start``); when every seed of a row is kept, the
+seeds are stacked with ``golden.save_stack`` under ``golden.OURS_ROOT`` and
+the stack is printed as one JSON line. The north-star job writes
 ``<results_root>/northstar.json`` and its tail curve under
 ``golden.OURS_ROOT``. Each job's output goes to ``<log_dir>/<job>.log``;
 ``northstar.json`` is copied into ``--log_dir``, and the kept curves, the
@@ -72,11 +76,12 @@ def parity_row(key: str) -> golden.GoldenSpec:
 
 
 def make_jobs(northstar, keys, total_steps, device, results_root,
-              reuse: bool = False) -> list:
-    """One dict per process: its name, argv, and the row it feeds. With
+              reuse: bool = False, seeds=None) -> list:
+    """One dict per process: its name, argv, and the row it feeds, one
+    per seed file (rows of one recipe share their seeds' files). With
     ``reuse``, no job for a seed of the row's recipe that is kept
-    (``golden.kept_seed``)."""
-    jobs = []
+    (``golden.kept_seed``); with ``seeds``, none for a seed not in it."""
+    jobs, made = [], set()
     if northstar:
         jobs.append(dict(
             name=f"northstar_{northstar}", row=NORTHSTAR, argv=[
@@ -92,8 +97,13 @@ def make_jobs(northstar, keys, total_steps, device, results_root,
             raise ValueError(f"{key} has no recipe: the north star runs "
                              f"through --northstar")
         for seed in spec.regen_seeds:
-            if reuse and golden.kept_seed(golden.OURS_ROOT, spec, seed):
+            if seeds is not None and seed not in seeds:
                 continue
+            path = golden.seed_file(golden.OURS_ROOT, spec, seed)
+            if path in made or (reuse and golden.kept_seed(
+                    golden.OURS_ROOT, spec, seed)):
+                continue
+            made.add(path)
             jobs.append(dict(
                 name=f"{spec.env}_{spec.algo}_seed_{seed}", row=key,
                 seed=seed, argv=[sys.executable, "-m", "freerl_tpu_torch.cli",
@@ -195,6 +205,8 @@ def keep_seeds(jobs: list, log_dir: str) -> None:
         run_dir = info.pop("run_dir")
         curve = golden.seed_curve(spec, run_dir, j["seed"])
         kept = golden.seed_file(golden.OURS_ROOT, spec, j["seed"])
+        pinned = golden.pinned_start(spec, j["seed"])
+        start = {} if pinned is None else dict(start=pinned)
         os.makedirs(os.path.dirname(kept), exist_ok=True)
         np.save(kept, curve)
         prov = golden.update_provenance(golden.OURS_ROOT, spec.env, seeds={
@@ -203,7 +215,7 @@ def keep_seeds(jobs: list, log_dir: str) -> None:
                     os.path.relpath(a, ROOT) if a.startswith(ROOT) else a
                     for a in j["argv"][1:]]]),
                 card=None if j["card"] is None else card_line(),
-                seconds=j["seconds"], **info,
+                seconds=j["seconds"], **info, **start,
                 final50=round(float(curve[-50:].mean()), 4))})
         for path in (kept, prov):
             _keep(path, log_dir)
@@ -253,6 +265,8 @@ def main(argv=None) -> int:
                          "runs at once")
     ap.add_argument("--force", action="store_true",
                     help="run seeds again whose curve is kept already")
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="run only these seeds of each row (default: all)")
     ap.add_argument("--total_steps", type=int, default=150_000_000)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--deadline", type=float, default=None,
@@ -267,7 +281,8 @@ def main(argv=None) -> int:
               "the CPU", file=sys.stderr)
         return 1
     jobs = make_jobs(args.northstar, args.rows, args.total_steps,
-                     args.device, args.results_root, not args.force)
+                     args.device, args.results_root, not args.force,
+                     args.seeds)
     os.makedirs(args.log_dir, exist_ok=True)
     from chip_smoke import stop_children
 

@@ -18,7 +18,11 @@ the script. Then each row's seeds are stacked as
 JAX package's ``regenerate`` stacks them, or raw as
 ``scripts/r5_singles.py`` does, as the row says), and
 ``<out>/<env>/provenance.json`` records, for each seed, the command, the
-commit, the JAX version, the device, the seconds and the env steps.
+commit, the JAX version, the device, the seconds and the env steps, and,
+where the recipe takes ``--fixed_reset``, the start observation the JAX
+package pins (``jax_starts``: the env the JAX CLI builds from the recipe,
+reset once on the CPU); a kept fixed-reset seed whose record has no start,
+or another start than the JAX package pins now, stops the script.
 
 The script imports nothing of JAX and nothing of the JAX package; it exits
 non-zero if a seed's command fails.
@@ -73,6 +77,53 @@ def jax_version() -> str:
     return out.stdout.strip()
 
 
+# run in a process of its own: the JAX CLI's argument parsing and env build
+# (its ``build``, stopped before training), then one eager reset of the
+# env, whose --fixed_reset wrapper pins the start whatever key it is given
+_START_CODE = """
+import json, sys
+import jax
+import freerl_tpu.cli as cli
+
+
+class Built(Exception):
+    pass
+
+
+def build(args, _build=cli.build):
+    raise Built(_build(args)[0])
+
+
+cli.build = build
+out = []
+for argv in json.loads(sys.argv[1]):
+    try:
+        cli.run(argv)
+    except Built as e:
+        _, obs = e.args[0].reset(jax.random.PRNGKey(0))
+        out.append([float(x) for x in jax.numpy.ravel(obs).tolist()])
+print(json.dumps(out))
+"""
+
+
+def jax_starts(tasks: list) -> dict:
+    """The start observation the JAX package pins for each ``(row, seed)``
+    of ``tasks`` whose recipe takes ``--fixed_reset``, keyed by
+    ``(row_key, seed)``, from one process on the CPU."""
+    todo = [(row, seed) for row, seed in tasks
+            if "--fixed_reset" in row.regen]
+    if not todo:
+        return {}
+    argvs = [[a.format(seed=seed) for a in row.regen] for row, seed in todo]
+    out = subprocess.run(
+        [sys.executable, "-c", _START_CODE, json.dumps(argvs)], cwd=ROOT,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"), capture_output=True,
+        text=True, check=True)
+    starts = json.loads(out.stdout.strip().splitlines()[-1])
+    return {(golden.row_key(row), seed): start
+            for (row, seed), start in zip(todo, starts)}
+
+
 def run_seeds(tasks: list, n_jobs: int, log_dir: str) -> list:
     """Run ``(row, seed, argv)`` tasks, ``n_jobs`` at once; returns one
     record per task (``rc``, ``seconds``, ``log``)."""
@@ -115,12 +166,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     rows = [head_row(k) for k in args.rows]
     os.makedirs(args.work, exist_ok=True)
+    starts = jax_starts([(row, seed) for row in rows
+                         for seed in row.regen_seeds])
     tasks, seen = [], set()
     for row in rows:
         for seed in row.regen_seeds:
             path = golden.seed_file(args.out, row, seed)
+            start = starts.get((golden.row_key(row), seed))
             if path in seen or (not args.force and golden.kept_seed(
-                    args.out, row, seed)):
+                    args.out, row, seed, start)):
                 continue
             seen.add(path)
             tasks.append((row, seed, jax_argv(row, seed, args.work)))
@@ -152,10 +206,12 @@ def main(argv=None) -> int:
                 device="cpu", seconds=rec["seconds"],
                 env_steps=info["env_steps"], episodes=info["episodes"],
                 steps_per_s=info["steps_per_s"],
-                final50=round(float(curve[-50:].mean()), 4))})
+                final50=round(float(curve[-50:].mean()), 4),
+                **({} if (golden.row_key(row), seed) not in starts else
+                   {"start": starts[(golden.row_key(row), seed)]}))})
     for row in rows:
-        if not all(golden.kept_seed(args.out, row, s)
-                   for s in row.regen_seeds):
+        if not all(golden.kept_seed(args.out, row, s, starts.get(
+                (golden.row_key(row), s))) for s in row.regen_seeds):
             print(f"[stack] {golden.row_key(row)}: seeds missing; not "
                   f"stacked", flush=True)
             continue

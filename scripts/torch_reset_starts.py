@@ -4,13 +4,18 @@ the card (or the CPU): what ``--fixed_reset`` trains every episode from.
     python3 scripts/torch_reset_starts.py [--device cuda|cpu]
 
 For every row of ``golden.JAX_PARITY`` whose recipe takes ``--fixed_reset``
-and each of its seeds, the port's ``FixedResetWrapper`` is built on the
-device as the CLI builds it and its start observation read. One JSON line
-gives them by env and seed, with the card's name and power limit. The
-torch generator draws another stream on the card than on the CPU, and
-neither is the JAX package's, so a row of ``golden.NOT_COMPARABLE`` holds
-different tasks on the two sides. Without a card it exits non-zero unless
-``--device cpu`` asks for the CPU.
+and each of its seeds, the env is built on the device as the port's CLI
+builds it (``golden.pinned_start``, through ``cli.build_env``) and its
+start observation read. The port pins the JAX package's start: the draw
+the JAX env makes in ``reset(jax.random.PRNGKey(seed))``, recomputed on the
+host (``core/jax_prng.py``), so the start is the same on the card, on the
+CPU and in the JAX package. Beside each start, ``same_as_jax`` says whether
+it is the start the JAX package pinned for that seed as the row's
+``@jax_head`` provenance records it (``golden.same_start``: within
+``golden.START_ULPS`` float32 ulps), or null where no such record exists.
+One JSON line gives them by env and seed, with the card's name and power
+limit. Without a card it exits non-zero unless ``--device cpu`` asks for
+the CPU.
 """
 from __future__ import annotations
 
@@ -24,23 +29,41 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from freerl_tpu_torch.envs import make  # noqa: E402
-from freerl_tpu_torch.envs.base import FixedResetWrapper  # noqa: E402
 from freerl_tpu_torch.train import golden  # noqa: E402
 
 
-def starts(device: str) -> dict:
-    """``{env: {seed: start observation}}`` over the fixed-reset rows."""
-    out = {}
+def jax_start(row: golden.GoldenSpec, seed: int):
+    """The start the JAX package pinned for one seed of ``row``'s recipe,
+    as ``golden.JAX_HEAD_ROOT``'s provenance records it, or None."""
+    path = os.path.join(golden.JAX_HEAD_ROOT, row.env, "provenance.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        rec = json.load(f).get("seeds", {}).get(os.path.basename(
+            golden.seed_file(golden.JAX_HEAD_ROOT, row, seed)))
+    if (rec is None or golden.recipe_of(rec["command"])
+            != [a.format(seed=seed) for a in row.regen]):
+        return None
+    return rec.get("start")
+
+
+def starts(device: str) -> tuple:
+    """``({env: {seed: start}}, {env: {seed: same as JAX's, or None}})``
+    over the fixed-reset rows."""
+    out, same = {}, {}
     for row in golden.JAX_PARITY:
         if "--fixed_reset" not in row.regen:
             continue
         for seed in row.regen_seeds:
-            env = FixedResetWrapper(make(row.env, device=device), seed)
-            _, obs = env.reset(env._reset_draw)
-            out.setdefault(row.env, {})[str(seed)] = [
-                round(float(x), 6) for x in obs[0].flatten().tolist()]
-    return out
+            key = str(seed)
+            if key in out.get(row.env, {}):
+                continue
+            obs = golden.pinned_start(row, seed, device)
+            want = jax_start(row, seed)
+            out.setdefault(row.env, {})[key] = obs
+            same.setdefault(row.env, {})[key] = (
+                None if want is None else golden.same_start(obs, want))
+    return out, same
 
 
 def main(argv=None) -> int:
@@ -53,9 +76,10 @@ def main(argv=None) -> int:
         return 1
     from chip_smoke import card_line
 
+    got, same = starts(args.device)
     print(json.dumps({"device": args.device,
                       "card": card_line() if args.device == "cuda" else None,
-                      "starts": starts(args.device)}), flush=True)
+                      "starts": got, "same_as_jax": same}), flush=True)
     return 0
 
 

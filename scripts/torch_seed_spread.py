@@ -13,10 +13,11 @@ line: for each side the seeds, the per-seed final-50 of the stack and of
 the raw curves, their mean, the break-out share (seeds whose stacked
 final-50 is at least ``BREAKOUT``, 100), the env steps each run took to its
 500th episode (the run stops at the first chunk past it) and the mean raw
-return of episodes 10-40 (0-based, ``curve[10:41]``); and the two-sided
+return of episodes 10-40 (0-based, ``curve[10:41]``); the two-sided
 Mann-Whitney U test (``scipy.stats.mannwhitneyu``) of the two sides'
 stacked final-50s, of their raw final-50s and of their episode-10-40
-means.
+means; and Fisher's exact two-sided test (``scipy.stats.fisher_exact``) of
+the two sides' break-out counts.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import json
 import os
 
 import numpy as np
-from scipy.stats import mannwhitneyu
+from scipy.stats import fisher_exact, mannwhitneyu
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOW = 50
@@ -47,6 +48,7 @@ def side(root: str, env: str, stem: str) -> dict:
         final50=[float(x) for x in final],
         final50_raw=[float(c[-WINDOW:].mean()) for c in raw],
         mean_final50=float(final.mean()),
+        breakouts=int((final >= BREAKOUT).sum()),
         breakout_share=float((final >= BREAKOUT).mean()),
         env_steps=[prov["seeds"][name]["env_steps"] for name in rec["files"]],
         early_mean=[float(c[EARLY].mean()) for c in raw])
@@ -57,11 +59,21 @@ def mwu(a, b) -> dict:
     return dict(U=float(res.statistic), p=float(res.pvalue))
 
 
+def fisher(a: dict, b: dict) -> dict:
+    """Fisher's exact two-sided test of two sides' break-out counts."""
+    table = [[a["breakouts"], len(a["seeds"]) - a["breakouts"]],
+             [b["breakouts"], len(b["seeds"]) - b["breakouts"]]]
+    res = fisher_exact(table, alternative="two-sided")
+    return dict(table=table, odds_ratio=float(res.statistic),
+                p=float(res.pvalue))
+
+
 def spread(ours_root: str, ref_root: str, env: str, stem: str) -> dict:
     ours = side(ours_root, env, stem)
     ref = side(ref_root, env, stem)
     return dict(
         env=env, stem=stem, breakout=BREAKOUT, port=ours, jax_head=ref,
+        fisher_breakouts=fisher(ours, ref),
         mannwhitney=dict(
             final50=mwu(ours["final50"], ref["final50"]),
             final50_raw=mwu(ours["final50_raw"], ref["final50_raw"]),

@@ -225,6 +225,9 @@ def _must_fail_reason(key: str) -> str:
     if key in golden.OPEN_FAULTS:
         return (f"{golden.OPEN_FAULTS[key]}: the committed port curve "
                 "misses its gate (ROADMAP queue C)")
+    if key in golden.UNDERPOWERED:
+        return (f"too few seeds for the gate: the port passes over more "
+                f"({golden.UNDERPOWERED[key]})")
     return (f"stale reference: the JAX package at this commit misses the "
             f"same gate ({golden.STALE_REFERENCES[key]})")
 
@@ -248,11 +251,13 @@ def test_committed_port_curves_pass(row):
 
 
 def test_held_rows_are_rows():
-    """Every key that ``OPEN_FAULTS``, ``STALE_REFERENCES`` and
-    ``NOT_COMPARABLE`` hold names a row, and no row is in two of them."""
+    """Every key that ``OPEN_FAULTS``, ``STALE_REFERENCES``,
+    ``UNDERPOWERED`` and ``NOT_COMPARABLE`` hold names a row, and no row is
+    in two of them; an ``UNDERPOWERED`` row names the row that shows it."""
     keys = {golden.row_key(r) for r in golden.JAX_PARITY}
     held = [set(golden.OPEN_FAULTS), set(golden.STALE_REFERENCES),
-            set(golden.NOT_COMPARABLE)]
+            set(golden.UNDERPOWERED), set(golden.NOT_COMPARABLE)]
+    assert set(golden.UNDERPOWERED.values()) <= keys
     assert set().union(*held) <= keys
     assert sum(map(len, held)) == len(set().union(*held))
 
@@ -362,10 +367,12 @@ def test_jax_head_3_seed_stack_fails_the_committed_gate(monkeypatch):
     assert jax_golden.check(spec) == got
 
 
-@pytest.mark.parametrize("held", ["open_fault", "stale_reference", "none",
-                                  "not_comparable", "missing"])
+@pytest.mark.parametrize("held", ["open_fault", "stale_reference",
+                                  "underpowered", "none", "not_comparable",
+                                  "missing"])
 def test_rows_held_to_fail(held, tmp_path, monkeypatch):
-    """A row under an open fault or a stale reference must read FAIL:
+    """A row under an open fault, a stale reference or too few seeds must
+    read FAIL:
     ``must_fail`` names it, and ``chip_smoke.py``'s ``golden vs jax``
     passes while it fails and fails the phase once it passes; a row held
     to nothing fails the phase when it fails; a row of ``NOT_COMPARABLE``
@@ -385,11 +392,14 @@ def test_rows_held_to_fail(held, tmp_path, monkeypatch):
     monkeypatch.setattr(golden, "JAX_PARITY", [row])
     monkeypatch.setattr(golden, "OPEN_FAULTS", {})
     monkeypatch.setattr(golden, "STALE_REFERENCES", {})
+    monkeypatch.setattr(golden, "UNDERPOWERED", {})
     monkeypatch.setattr(golden, "NOT_COMPARABLE", {})
     if held == "open_fault":
         golden.OPEN_FAULTS["Env-v0/X_3_seed"] = "C99"
     elif held == "stale_reference":
         golden.STALE_REFERENCES["Env-v0/X_3_seed"] = "Env-v0/evidence.json"
+    elif held == "underpowered":
+        golden.UNDERPOWERED["Env-v0/X_3_seed"] = "Env-v0/X_48_seed"
     elif held == "not_comparable":
         golden.NOT_COMPARABLE["Env-v0/X_3_seed"] = "starts differ"
     elif held == "missing":
@@ -400,7 +410,7 @@ def test_rows_held_to_fail(held, tmp_path, monkeypatch):
         return
     assert golden.check_against_jax(row)["status"] == "FAIL"
     assert golden.must_fail("Env-v0/X_3_seed") == (
-        held in ("open_fault", "stale_reference"))
+        held in ("open_fault", "stale_reference", "underpowered"))
     if held == "none":
         with pytest.raises(AssertionError):
             chip_smoke.phase_golden_vs_jax()

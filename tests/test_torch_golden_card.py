@@ -48,6 +48,24 @@ def test_jobs_of_the_two_rows():
         assert job["row"] == "LunarLander-v2/DQN_3_seed"
 
 
+def test_jobs_of_chosen_seeds_once_a_seed_file(tmp_path, monkeypatch):
+    """``--seeds`` keeps a row's jobs to those seeds; rows of one recipe
+    share their seeds' files, so a seed is run once for all of them, and a
+    kept seed not at all."""
+    monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path))
+    keys = ["LunarLander-v2/DQN_3_seed", "LunarLander-v2/DQN_16_seed@jax_head",
+            "LunarLander-v2/DQN_48_seed@jax_head"]
+    jobs = card.make_jobs(None, keys, 1, "cuda", "r", True,
+                          [100, 15, 46, 47])
+    assert [(j["row"], j["seed"]) for j in jobs] == [
+        (keys[0], 100), (keys[2], 15), (keys[2], 46)]
+    jobs = card.make_jobs(None, keys, 1, "cuda", "r", True)
+    assert [j["seed"] for j in jobs] == list(golden.DQN_LL_SEEDS48)
+    assert card.main(["--seeds", "1", "--device", "cpu", "--log_dir",
+                      str(tmp_path / "log"), "--deadline", "0",
+                      keys[1]]) == 1
+
+
 def test_unknown_or_recipe_less_rows_are_refused():
     with pytest.raises(KeyError):
         card.make_jobs(None, ["LunarLander-v2/PPO_9_seed"], 1, "cuda", "r")

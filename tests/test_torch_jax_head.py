@@ -107,9 +107,10 @@ def _tree(root, seeds, finals, early, steps):
 
 
 def test_seed_spread_on_a_toy_input(tmp_path, capsys):
-    """Three seeds a side: the per-seed statistics, the break-out share and
+    """Three seeds a side: the per-seed statistics, the break-out share,
     the two-sided Mann-Whitney p (3 against 3, fully separated: the exact
-    p is 2 / C(6, 3) = 0.1)."""
+    p is 2 / C(6, 3) = 0.1) and Fisher's exact p of the break-out counts
+    (2 of 3 against 0 of 3: 0.4)."""
     ours = _tree(tmp_path / "a", (0, 1, 2), [200.0, 150.0, -80.0],
                  [-150.0, -160.0, -170.0], [100, 200, 300])
     ref = _tree(tmp_path / "b", (0, 1, 2), [-50.0, -60.0, -70.0],
@@ -122,6 +123,9 @@ def test_seed_spread_on_a_toy_input(tmp_path, capsys):
     np.testing.assert_allclose(got["port"]["final50"], ours)
     np.testing.assert_allclose(got["jax_head"]["final50"], ref)
     assert got["port"]["breakout_share"] == pytest.approx(2 / 3)
+    assert (got["port"]["breakouts"], got["jax_head"]["breakouts"]) == (2, 0)
+    assert got["fisher_breakouts"]["table"] == [[2, 1], [0, 3]]
+    assert got["fisher_breakouts"]["p"] == pytest.approx(0.4)
     assert got["jax_head"]["breakout_share"] == 0.0
     assert got["port"]["early_mean"] == [-150.0, -160.0, -170.0]
     assert got["jax_head"]["env_steps"] == [400, 500, 600]
@@ -221,6 +225,73 @@ def test_a_seed_of_another_recipe_is_refused(cpu_rows):
     os.remove(os.path.join(golden.OURS_ROOT, spec.env, "provenance.json"))
     with pytest.raises(ValueError, match="no provenance record"):
         golden.kept_seed(golden.OURS_ROOT, spec, 3)
+
+
+def test_a_fixed_reset_seed_from_another_start_is_refused(tmp_path,
+                                                          monkeypatch):
+    """A kept seed of a ``--fixed_reset`` recipe is taken only where its
+    record names the start the port pins now (``golden.same_start``): a
+    record with no start, or with another one (the port's own torch draw
+    of Pendulum seed 0, theta -0.024, before it pinned the JAX package's),
+    stops the runner, which ``--force`` runs again."""
+    monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path))
+    key = "Pendulum-v1/TD3_1_seed"
+    row = card.parity_row(key)
+    path = golden.seed_file(str(tmp_path), row, 0)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, np.zeros(4))
+    rec = dict(command=" ".join(["python", "-m", "freerl_tpu_torch.cli",
+                                 *golden.regen_argv(row, 0, "R", "cuda")]))
+
+    def record(**start):
+        golden.update_provenance(str(tmp_path), row.env, seeds={
+            os.path.basename(path): dict(rec, **start)})
+
+    record()
+    with pytest.raises(ValueError, match="no start record"):
+        golden.kept_seed(str(tmp_path), row, 0)
+    with pytest.raises(ValueError, match="another start"):
+        card.make_jobs(None, [key], 1, "cuda", "R", True)
+    assert len(card.make_jobs(None, [key], 1, "cuda", "R", False)) == 1
+    old = [float(np.cos(-0.0235)), float(np.sin(-0.0235)), 0.5364]
+    record(start=old)
+    with pytest.raises(ValueError, match="another start"):
+        golden.kept_seed(str(tmp_path), row, 0)
+    pinned = golden.pinned_start(row, 0)
+    assert np.arctan2(pinned[1], pinned[0]) == pytest.approx(2.1508,
+                                                             abs=1e-4)
+    record(start=pinned)
+    assert golden.kept_seed(str(tmp_path), row, 0)
+    assert card.make_jobs(None, [key], 1, "cuda", "R", True) == []
+    one_ulp = [float(np.nextafter(np.float32(x), np.float32(9)))
+               for x in pinned]
+    record(start=one_ulp)
+    assert golden.kept_seed(str(tmp_path), row, 0)
+    assert golden.kept_seed(str(tmp_path), row, 0, start=one_ulp)
+    three_ulps = [float(np.float32(x) + 3 * np.spacing(np.float32(x)))
+                  for x in pinned]
+    with pytest.raises(ValueError, match="another start"):
+        golden.kept_seed(str(tmp_path), row, 0, start=three_ulps)
+    with pytest.raises(ValueError, match="another start"):
+        golden.kept_seed(str(tmp_path), row, 0, start=old)
+    assert golden.pinned_start(golden.SPECS[0], 0) is None
+
+
+def test_jax_starts_are_the_ports():
+    """The start the JAX package pins, read from the env its own CLI builds
+    for a recipe (in a JAX process), is the start the port pins for it;
+    a recipe without ``--fixed_reset`` has none."""
+    rows = [head.head_row("Pendulum-v1/SAC_1_seed@jax_head"),
+            head.head_row("CartPole-v1/PPO_3_seed@jax_head")]
+    tasks = [(rows[0], 0), (rows[1], 10), (golden.JAX_PARITY[3], 0)]
+    starts = head.jax_starts(tasks)
+    assert set(starts) == {("Pendulum-v1/SAC_1_seed@jax_head", 0),
+                           ("CartPole-v1/PPO_3_seed@jax_head", 10)}
+    for (key, seed), start in starts.items():
+        row = rows[0] if key.startswith("Pendulum") else rows[1]
+        assert golden.same_start(start, golden.pinned_start(row, seed))
+    cos, sin, _ = starts[("Pendulum-v1/SAC_1_seed@jax_head", 0)]
+    assert np.arctan2(sin, cos) == pytest.approx(2.1508, abs=1e-4)
 
 
 def test_recipe_of_a_recorded_command():

@@ -157,7 +157,8 @@ def test_jobs_skip_and_force(tmp_path, monkeypatch):
         golden.update_provenance(str(tmp_path), row.env, seeds={
             os.path.basename(path): dict(command=" ".join(
                 ["python", "-m", "freerl_tpu_torch.cli",
-                 *golden.regen_argv(row, seed, "R", "cuda")]))})
+                 *golden.regen_argv(row, seed, "R", "cuda")]),
+                start=golden.pinned_start(row, seed))})
     assert card.make_jobs(None, keys, 1, "cuda", "R", True) == []
     assert len(card.make_jobs(None, keys, 1, "cuda", "R", False)) == 3
     with pytest.raises(ValueError):
@@ -201,10 +202,11 @@ def test_gate_rows_are_dataclass_copies():
 
 
 def test_fixed_reset_starts_are_each_packages_own_draw():
-    """``--fixed_reset`` pins the start each package draws from the seed,
-    and the streams differ: Pendulum seed 0 starts near the top in the
-    port on the CPU (theta -0.024) and near the bottom in the JAX package
-    (theta 2.151), so a fixed-reset Pendulum row holds two tasks."""
+    """``--fixed_reset`` pins the start the JAX package draws from the
+    seed, in both packages: the port recomputes the JAX env's draw from
+    ``jax.random.PRNGKey(seed)`` on the host, so Pendulum seed 0 starts at
+    theta 2.1508 on each side (the port drew its own, theta -0.024 on the
+    CPU, before)."""
     import jax
 
     from freerl_tpu.envs import make as jax_make
@@ -216,66 +218,81 @@ def test_fixed_reset_starts_are_each_packages_own_draw():
     theta, theta_dot = port._reset_draw[0].tolist()
     jstate, _ = JaxFixedReset(jax_make("Pendulum-v1"), 0).reset(
         jax.random.PRNGKey(5))
-    assert theta == pytest.approx(-0.0235, abs=1e-4)
-    assert theta_dot == pytest.approx(0.5364, abs=1e-4)
-    assert float(jstate.theta) == pytest.approx(2.1508, abs=1e-4)
-    assert float(jstate.theta_dot) == pytest.approx(-0.9854, abs=1e-4)
-
-
-def _start_obs(env_name: str, seed: int):
-    """The observation each package's ``FixedResetWrapper`` starts every
-    episode from for ``seed``: the JAX package's, and the port's with its
-    generator on the CPU."""
-    import jax
-
-    from freerl_tpu.envs import make as jax_make
-    from freerl_tpu.envs.base import FixedResetWrapper as JaxFixedReset
-    from freerl_tpu_torch.envs import make
-    from freerl_tpu_torch.envs.base import FixedResetWrapper
-
-    _, jobs = JaxFixedReset(jax_make(env_name), seed).reset(
-        jax.random.PRNGKey(5))
-    port = FixedResetWrapper(make(env_name, device="cpu"), seed)
-    _, obs = port.reset(port._reset_draw)
-    return np.asarray(jobs, np.float64), obs[0].double().numpy()
+    assert theta == pytest.approx(2.1508, abs=1e-4)
+    assert theta_dot == pytest.approx(-0.9854, abs=1e-4)
+    assert theta == float(jstate.theta)
+    assert theta_dot == float(jstate.theta_dot)
 
 
 def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
     """``golden.NOT_COMPARABLE`` holds every fixed-reset row of which some
     seed starts from another state in the port than in the JAX package,
-    and no other row: FrozenLake starts from its one start state in both,
-    every other fixed-reset env from each package's own draw."""
-    want, starts = set(), {}
+    and no other row. Every seed's pinned draw is the JAX env's, bit for
+    bit, and its start observation lies within one float32 ulp of the JAX
+    package's, so the set is empty."""
+    from tests.test_torch_jax_prng import (jax_reset_draw, start_pair,
+                                           within_one_ulp)
+    import jax
+
+    want, seen = set(), {}
     for row in golden.JAX_PARITY:
         if "--fixed_reset" not in row.regen:
             continue
         for seed in row.regen_seeds:
-            if (row.env, seed) not in starts:
-                starts[(row.env, seed)] = _start_obs(row.env, seed)
-            jax_obs, port_obs = starts[(row.env, seed)]
-            if not np.array_equal(jax_obs, port_obs):
+            if (row.env, seed) not in seen:
+                jobs, obs, draw = start_pair(row.env, seed)
+                jdraw = jax_reset_draw(row.env, jax.random.PRNGKey(seed))
+                seen[(row.env, seed)] = (
+                    np.array_equal(draw[0].numpy(), jdraw.reshape(
+                        draw.shape[1:]))
+                    and within_one_ulp(obs.reshape(-1), jobs.reshape(-1)))
+            if not seen[(row.env, seed)]:
                 want.add(golden.row_key(row))
-    assert want == set(golden.NOT_COMPARABLE)
-    assert not any(k.startswith("FrozenLake") for k in want)
+    assert want == set(golden.NOT_COMPARABLE) == set()
+    # CartPole, Pendulum and LunarLander 3 seeds each, FrozenLake 16, Taxi 1
+    assert len(seen) == 3 * 3 + 16 + 1
 
 
 def test_reset_starts_script_on_the_cpu(capsys):
     """``scripts/torch_reset_starts.py`` prints the start each fixed-reset
-    row's seeds pin: FrozenLake's one start state for every seed, and
-    Pendulum seed 0's draw on the CPU (cos, sin, theta_dot of theta
-    -0.0235); without a card it refuses."""
+    row's seeds pin, and whether it is the JAX package's as the
+    ``@jax_head`` provenance records it: FrozenLake's one start state for
+    every seed, and Pendulum seed 0 at the JAX package's theta 2.1508,
+    theta_dot -0.9854; every recorded JAX start is the port's. Without a
+    card it refuses."""
     from scripts import torch_reset_starts as starts
 
     assert starts.main(["--device", "cpu"]) == 0
     got = json.loads(capsys.readouterr().out)
     assert got["device"] == "cpu" and got["card"] is None
-    assert got["starts"]["FrozenLake-v1"] == {"0": [0.0], "10": [0.0],
-                                              "100": [0.0]}
+    assert got["starts"]["FrozenLake-v1"] == {
+        str(s): [0.0] for s in golden.DQN_LL_SEEDS16}
     cos, sin, theta_dot = got["starts"]["Pendulum-v1"]["0"]
-    assert np.arctan2(sin, cos) == pytest.approx(-0.0235, abs=1e-4)
-    assert theta_dot == pytest.approx(0.5364, abs=1e-4)
+    assert np.arctan2(sin, cos) == pytest.approx(2.1508, abs=1e-4)
+    assert theta_dot == pytest.approx(-0.9854, abs=1e-4)
+    same = [v for env in got["same_as_jax"].values() for v in env.values()]
+    assert None not in same and all(same)
     assert set(got["starts"]) == {golden.row_key(r).split("/")[0]
                                   for r in golden.JAX_PARITY
                                   if "--fixed_reset" in r.regen}
     if not torch.cuda.is_available():
         assert starts.main([]) == 1
+
+
+@pytest.mark.parametrize("tag", ["PPO_CartPole", "PPO_LunarLander",
+                                 "DQN_Taxi", "DDPG_discrete_CartPole",
+                                 "SAC_discrete_CartPole"])
+def test_committed_and_jax_head_first_episodes_agree(tag):
+    """The committed round-5 stack and the JAX package rerun at this commit
+    begin every seed with the same first three episodes (returns equal, or
+    within 1e-6 relative where LunarLander's float32 physics ran on other
+    chips): both start each episode from the one state the seed pins, the
+    state the port now pins, so both reference columns hold the port's
+    task."""
+    committed, head = golden.r5_rows(tag)
+    stack = np.load(os.path.join(golden.JAX_CURVES_ROOT, committed.env,
+                                 committed.algo + ".npy"))
+    for i, seed in enumerate(committed.regen_seeds):
+        rerun = np.load(golden.seed_file(golden.JAX_HEAD_ROOT, head, seed))
+        np.testing.assert_allclose(rerun[:3], stack[i, :3], rtol=1e-6,
+                                   atol=0)
