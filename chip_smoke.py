@@ -146,8 +146,11 @@ Phases (any failure raises, and the script exits non-zero):
     into a temporary directory;
 24. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
-    simple_spread_v3), seed 0: the mean return of the last episodes must
-    clear each recipe's threshold;
+    simple_spread_v3), seed 0, side by side: each in a spawned process of
+    its own on the card (``side_by_side``), all joined before the next
+    phase; the mean return of the last episodes must clear each recipe's
+    threshold, a check that fails or outlives ``LEARNING_TIMEOUT_S``
+    fails the run, and no check may move a global random state;
 25. the port's bench (``freerl_tpu_torch/bench.py``): ``bench_dqn`` at
     the headline size (4096 envs, chunk 256, 2 measured chunks), its env
     steps counted, its rate finite, its peak memory printed, no sum-tree
@@ -166,9 +169,9 @@ Phases (any failure raises, and the script exits non-zero):
     ``@jax_head``, against the JAX package rerun at this commit on the CPU
     (``golden.check_against_jax``); a row fails only under an open fault
     of ``golden.OPEN_FAULTS`` or a stale reference of
-    ``golden.STALE_REFERENCES``, or with too few seeds for its gate
-    (``golden.UNDERPOWERED``), and such a row must fail; an absent curve
-    reads ``missing``;
+    ``golden.STALE_REFERENCES``, or where the gate, not the port, misses
+    (``golden.UNDERPOWERED``), and such a row must fail; an
+    absent curve fails the phase;
 29. the fixed-reset starts: for every env and seed of a ``--fixed_reset``
     row of ``golden.JAX_PARITY``, the env built as the CLI builds it on the
     card and on the CPU pins one start (the JAX package's draw, made on the
@@ -3470,10 +3473,11 @@ def recipe_run(rec: dict, seed: int, device: str, algo_cls=None):
     return env, algo, lambda: train_offpolicy(env, algo, cfg)
 
 
-def phase_learning(name: str) -> int:
+def phase_learning(name: str) -> dict:
     """The learning check ``LEARNING_CHECKS[name]`` on the card, seed 0,
     with the checks of its driver's phases. Returns the sum-tree
-    launches."""
+    launches, the check's ``[learning ...]`` line and its readings (the
+    means of the first and of the last episodes it reads)."""
     from freerl_tpu_torch.train import OnPolicyConfig
 
     rec = LEARNING_CHECKS[name]
@@ -3496,15 +3500,143 @@ def phase_learning(name: str) -> int:
     first = float(returns[:n_first].mean())
     last = float(returns[-n_last:].mean())
     steps = info.get("updates", info.get("iterations"))
-    log(f"[learning {rec['env']} {rec['algo']}] {len(returns)} episodes, "
-        f"{info['env_steps']} env steps, {steps} learner steps or updates "
-        f"in {info['elapsed_s']:.1f} s (each {r['learn_ms']:.3f} ms): "
-        f"first {n_first} episodes {first:.1f}, last {n_last} {last:.1f} "
-        f"(threshold {threshold})")
+    line = (f"[learning {rec['env']} {rec['algo']}] {len(returns)} episodes, "
+            f"{info['env_steps']} env steps, {steps} learner steps or "
+            f"updates in {info['elapsed_s']:.1f} s (each "
+            f"{r['learn_ms']:.3f} ms): first {n_first} episodes "
+            f"{first:.1f}, last {n_last} {last:.1f} (threshold {threshold})")
     if len(returns) != rec["loop"]["max_episodes"] or not last > threshold:
         raise AssertionError(f"{rec['algo']} did not learn {rec['env']}: "
                              f"last {n_last} mean {last}")
-    return r["launches"]
+    return dict(launches=r["launches"], line=line, first=first, last=last)
+
+
+# seconds a learning check may take in the side-by-side block: at least
+# twice the longest any check took alone on the card (SAC Pendulum,
+# 140-229 s, PRs 4-15)
+LEARNING_TIMEOUT_S = 600.0
+
+
+def global_rng_states() -> dict:
+    """The process's global random states: torch's CPU generator, every
+    card's, numpy's and Python's."""
+    import random
+
+    return dict(
+        torch=torch.get_rng_state(),
+        cuda=(torch.cuda.get_rng_state_all() if torch.cuda.is_available()
+              else []),
+        numpy=np.random.get_state(legacy=False), random=random.getstate())
+
+
+def moved_rngs(before: dict, after: dict) -> list:
+    """The global random states of ``global_rng_states`` that moved."""
+    same = dict(
+        torch=torch.equal(before["torch"], after["torch"]),
+        cuda=(len(before["cuda"]) == len(after["cuda"]) and all(
+            torch.equal(a, b) for a, b in zip(before["cuda"],
+                                              after["cuda"]))),
+        numpy=(str(before["numpy"]) == str(after["numpy"])),
+        random=before["random"] == after["random"])
+    return [k for k, v in same.items() if not v]
+
+
+def side_child(fn, name: str, args: tuple, path: str) -> None:
+    """One check of ``side_by_side``, in a spawned process: ``fn(name,
+    *args)`` with the parent's TF32 settings (off), its result, its seconds
+    and the global random states it moved pickled to ``path``. An exception
+    ends the process with a non-zero exit code and its traceback on
+    stderr."""
+    import pickle
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    before = global_rng_states()
+    out = fn(name, *args)
+    rec = dict(out=out, seconds=time.time() - t0,
+               moved=moved_rngs(before, global_rng_states()))
+    with open(path, "wb") as f:
+        pickle.dump(rec, f)
+
+
+def side_by_side(fn, names, args: tuple = (),
+                 timeout: float = LEARNING_TIMEOUT_S) -> tuple:
+    """``fn(name, *args)`` for every name at once, each in a spawned
+    process. Returns ``({name: record}, wall seconds)``, where a record has
+    ``fn``'s result (``out``), the child's own ``seconds`` and the global
+    random states it moved (``moved``). A child that exits non-zero, or
+    still runs ``timeout`` seconds after the start, fails the block: the
+    children still running are killed and reaped, and an
+    ``AssertionError`` names every check that failed. Every child is
+    joined before it returns."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        procs = {name: ctx.Process(
+            target=side_child, name=f"check {name}",
+            args=(fn, name, args, os.path.join(d, f"{name}.pkl")))
+            for name in names}
+        for p in procs.values():
+            p.start()
+        failed = []
+        while not failed and any(p.is_alive() for p in procs.values()):
+            time.sleep(0.2)
+            late = time.time() - t0 > timeout
+            failed = [f"{name}: " + (f"still running after {timeout:.0f} s"
+                                     if p.is_alive() else
+                                     f"exit code {p.exitcode}")
+                      for name, p in procs.items()
+                      if p.exitcode not in (None, 0)
+                      or late and p.is_alive()]
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+            p.join()
+        if not failed:
+            failed = [f"{name}: exit code {p.exitcode}"
+                      for name, p in procs.items() if p.exitcode != 0]
+        if failed:
+            raise AssertionError(f"side by side: {failed}")
+        out = {}
+        for name in names:
+            with open(os.path.join(d, f"{name}.pkl"), "rb") as f:
+                out[name] = pickle.load(f)
+        return out, time.time() - t0
+
+
+def phase_learning_block() -> dict:
+    """Every check of ``LEARNING_CHECKS`` at once (``side_by_side``), each
+    ``phase_learning`` unchanged in a process of its own on the card. Logs
+    each check's line and seconds; fails if a check failed, or moved a
+    global random state (the phases after the block then get the states
+    a serial run of the checks would have left them). Returns the sum-tree
+    launches of the on-policy and of the multi-agent checks ("onpolicy",
+    "marl")."""
+    runs, wall = side_by_side(phase_learning, list(LEARNING_CHECKS))
+    launches = dict(onpolicy=0, marl=0)
+    moved = {}
+    for name, rec in runs.items():
+        log(rec["out"]["line"])
+        log(f"[time] learning {name}: {rec['seconds']:.1f} s (side by side)")
+        driver = LEARNING_CHECKS[name].get("driver")
+        if driver in launches:
+            launches[driver] += rec["out"]["launches"]
+        if rec["moved"]:
+            moved[name] = rec["moved"]
+    longest = max(rec["seconds"] for rec in runs.values())
+    log(f"[time] learning block: {wall:.1f} s for {len(runs)} checks side "
+        f"by side, {wall / longest:.2f}x the longest check ({longest:.1f} s)"
+        f"; the checks' own times sum to "
+        f"{sum(rec['seconds'] for rec in runs.values()):.1f} s")
+    if moved:
+        raise AssertionError(f"learning checks drew from the global random "
+                             f"states: {moved}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4278,8 +4410,8 @@ def phase_golden_vs_jax() -> None:
     (every row has a committed curve), or if its verdict breaks what it is
     held to (``golden.breaks_hold``): it fails its gate and is not held to
     fail, or it is held to fail (an open fault of ``golden.OPEN_FAULTS``, a
-    stale reference of ``golden.STALE_REFERENCES``, or a row with too few
-    seeds for its gate, ``golden.UNDERPOWERED``) and passes. A row of
+    stale reference of ``golden.STALE_REFERENCES``, or a row whose gate,
+    not the port, misses, ``golden.UNDERPOWERED``) and passes. A row of
     ``golden.NOT_COMPARABLE`` is printed and held to nothing."""
     from freerl_tpu_torch.train import golden
 
@@ -4291,7 +4423,7 @@ def phase_golden_vs_jax() -> None:
                if key in golden.OPEN_FAULTS else
                f" (stale reference, {golden.STALE_REFERENCES[key]})"
                if key in golden.STALE_REFERENCES else
-               f" (underpowered, shown by {golden.UNDERPOWERED[key]})"
+               f" (the gate, not the port, misses: {golden.UNDERPOWERED[key]})"
                if key in golden.UNDERPOWERED else
                f" (not comparable: {golden.NOT_COMPARABLE[key]})"
                if key in golden.NOT_COMPARABLE else "")
@@ -4435,11 +4567,9 @@ def main() -> int:
         "launches"]
     timed("card-vs-cpu slice 8 one-rank NCCL", phase_nccl_one_rank)
     timed("golden", phase_golden)
-    for name in LEARNING_CHECKS:
-        launches = timed(f"learning {name}", phase_learning, name)
-        driver = LEARNING_CHECKS[name].get("driver")
-        if driver in ("onpolicy", "marl"):
-            kernel[f"launches_{driver}"] += launches
+    learning = timed("learning checks", phase_learning_block)
+    kernel["launches_onpolicy"] += learning["onpolicy"]
+    kernel["launches_marl"] += learning["marl"]
     kernel["launches_bench"] = timed("bench", phase_bench)
     kernel["launches_per_bench"] = timed("per bench", phase_per_bench)
     kernel["launches_northstar"] = timed("northstar", phase_northstar)

@@ -297,6 +297,7 @@ def run(argv=None):
     """Build and train from CLI flags; returns the run's model_dir."""
     args = parser().parse_args(argv)
 
+    from freerl_tpu_torch.ops import sumtree
     from freerl_tpu_torch.train import (MARLConfig, MetricsWriter,
                                         OffPolicyConfig, OnPolicyConfig,
                                         make_dir, save_checkpoint,
@@ -337,6 +338,8 @@ def run(argv=None):
     cadence = ({"log_every_chunks": 1, "host_sync_every": 1}
                if args.save_freq else {})
 
+    # the sum-tree kernel's launches in this run alone (the count is global)
+    sumtree.launches = 0
     if args.algo in OFFPOLICY:
         cfg = OffPolicyConfig(
             seed=args.seed, num_envs=args.num_envs,
@@ -359,6 +362,7 @@ def run(argv=None):
                if args.save_freq else {}))
         state, returns, info = train_onpolicy(env, algo, cfg,
                                               on_iter=on_iter)
+    b1_launches = sumtree.launches
 
     writer.log_episodes(returns)
     curve_path = writer.save_curve(returns)
@@ -367,6 +371,7 @@ def run(argv=None):
     print(f"episodes: {info['episodes']}  env_steps: {info['env_steps']}  "
           f"steps/s: {info['env_steps_per_s']:.0f}")
     print(f"final-50 mean return: {float(np.mean(returns[-50:])):.2f}")
+    print(f"sumtree_descend launches: {b1_launches}")
     print(f"curve: {curve_path}\ncheckpoint: {ckpt_path}")
     return model_dir
 

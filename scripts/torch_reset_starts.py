@@ -13,7 +13,8 @@ CPU and in the JAX package. Beside each start, ``same_as_jax`` says whether
 it is the start the JAX package pinned for that seed as the row's
 ``@jax_head`` provenance records it (``golden.same_start``: within
 ``golden.START_ULPS`` float32 ulps), or null where no such record exists.
-One JSON line gives them by env and seed, with the card's name and power
+One JSON line gives them by env and by the seed that pins the start (the
+recipe's ``--reset_seed``, else the seed), with the card's name and power
 limit. Without a card it exits non-zero unless ``--device cpu`` asks for
 the CPU.
 """
@@ -55,7 +56,7 @@ def starts(device: str) -> tuple:
         if "--fixed_reset" not in row.regen:
             continue
         for seed in row.regen_seeds:
-            key = str(seed)
+            key = str(golden.start_seed(row, seed))
             if key in out.get(row.env, {}):
                 continue
             obs = golden.pinned_start(row, seed, device)

@@ -3,7 +3,8 @@ the two trees' curves (numpy and scipy only).
 
     python3 scripts/torch_seed_spread.py [--env LunarLander-v2]
         [--stem DQN_16_seed] [--ours results/torch/learning_curves]
-        [--ref results/torch/jax_head]
+        [--ref results/torch/jax_head] [--below X]
+    python3 scripts/torch_seed_spread.py --greedy results/torch/c12_greedy.json
 
 Each side's ``<root>/<env>/provenance.json`` names, under ``stacks``, the
 seeds of ``<stem>`` and their raw curves (``<root>/<env>/seeds/``), and,
@@ -17,7 +18,16 @@ return of episodes 10-40 (0-based, ``curve[10:41]``); the two-sided
 Mann-Whitney U test (``scipy.stats.mannwhitneyu``) of the two sides'
 stacked final-50s, of their raw final-50s and of their episode-10-40
 means; and Fisher's exact two-sided test (``scipy.stats.fisher_exact``) of
-the two sides' break-out counts.
+the two sides' break-out counts. With ``--below X`` each side also counts
+the seeds whose stacked final-50 is below X (``below``: C13's seeds on the
+second policy, X = -180 on Pendulum), and ``fisher_below`` tests those
+counts.
+
+``--greedy`` reads the greedy success rates ``scripts/torch_c12_greedy.py``
+wrote and prints C12's rule over them (``greedy_rule``): the two-sided
+Mann-Whitney p of the per-seed rates, each side's best rate, and whether
+both parts hold (p >= 0.05, and the port's best at least JAX's best less
+the row's slack, 0.08).
 """
 from __future__ import annotations
 
@@ -34,8 +44,13 @@ EARLY = slice(10, 41)       # episodes 10-40
 BREAKOUT = 100.0            # a stacked final-50 at or above it broke out
 
 
-def side(root: str, env: str, stem: str) -> dict:
-    """One side's per-seed statistics."""
+P_MIN = 0.05               # a p at or above it shows no difference
+GREEDY_SLACK = 0.08         # FrozenLake's best-seed gate's slack
+
+
+def side(root: str, env: str, stem: str, below: float | None = None) -> dict:
+    """One side's per-seed statistics; with ``below``, the count of seeds
+    whose stacked final-50 is below it."""
     with open(os.path.join(root, env, "provenance.json")) as f:
         prov = json.load(f)
     rec = prov["stacks"][stem]
@@ -43,7 +58,8 @@ def side(root: str, env: str, stem: str) -> dict:
            for name in rec["files"]]
     stack = np.load(os.path.join(root, env, stem + ".npy"))
     final = stack[:, -WINDOW:].mean(1)
-    return dict(
+    extra = {} if below is None else dict(below=int((final < below).sum()))
+    return dict(**extra,
         seeds=rec["seeds"],
         final50=[float(x) for x in final],
         final50_raw=[float(c[-WINDOW:].mean()) for c in raw],
@@ -59,21 +75,39 @@ def mwu(a, b) -> dict:
     return dict(U=float(res.statistic), p=float(res.pvalue))
 
 
-def fisher(a: dict, b: dict) -> dict:
-    """Fisher's exact two-sided test of two sides' break-out counts."""
-    table = [[a["breakouts"], len(a["seeds"]) - a["breakouts"]],
-             [b["breakouts"], len(b["seeds"]) - b["breakouts"]]]
+def fisher(a: dict, b: dict, key: str = "breakouts") -> dict:
+    """Fisher's exact two-sided test of two sides' counts of ``key``
+    (break-outs by default)."""
+    table = [[a[key], len(a["seeds"]) - a[key]],
+             [b[key], len(b["seeds"]) - b[key]]]
     res = fisher_exact(table, alternative="two-sided")
     return dict(table=table, odds_ratio=float(res.statistic),
                 p=float(res.pvalue))
 
 
-def spread(ours_root: str, ref_root: str, env: str, stem: str) -> dict:
-    ours = side(ours_root, env, stem)
-    ref = side(ref_root, env, stem)
+def greedy_rule(port: list, jax: list, slack: float = GREEDY_SLACK) -> dict:
+    """C12's rule over per-seed greedy success rates: the two-sided
+    Mann-Whitney p of the two sides' rates, each side's best, and whether
+    the p is at least ``P_MIN`` and the port's best at least JAX's best
+    less ``slack``."""
+    test = mwu(port, jax)
+    best_port, best_jax = float(max(port)), float(max(jax))
+    return dict(mannwhitney=test, best_port=best_port, best_jax=best_jax,
+                mean_port=float(np.mean(port)), mean_jax=float(np.mean(jax)),
+                slack=slack, p_ok=test["p"] >= P_MIN,
+                best_ok=best_port >= best_jax - slack,
+                closes=test["p"] >= P_MIN and best_port >= best_jax - slack)
+
+
+def spread(ours_root: str, ref_root: str, env: str, stem: str,
+           below: float | None = None) -> dict:
+    ours = side(ours_root, env, stem, below)
+    ref = side(ref_root, env, stem, below)
+    extra = {} if below is None else dict(
+        below=below, fisher_below=fisher(ours, ref, "below"))
     return dict(
         env=env, stem=stem, breakout=BREAKOUT, port=ours, jax_head=ref,
-        fisher_breakouts=fisher(ours, ref),
+        **extra, fisher_breakouts=fisher(ours, ref),
         mannwhitney=dict(
             final50=mwu(ours["final50"], ref["final50"]),
             final50_raw=mwu(ours["final50_raw"], ref["final50_raw"]),
@@ -88,9 +122,21 @@ def main(argv=None) -> int:
         ROOT, "results", "torch", "learning_curves"))
     ap.add_argument("--ref", default=os.path.join(
         ROOT, "results", "torch", "jax_head"))
+    ap.add_argument("--below", type=float, default=None,
+                    help="count the seeds whose final-50 is below this")
+    ap.add_argument("--greedy", default=None,
+                    help="a greedy-rate JSON of scripts/torch_c12_greedy.py")
     args = ap.parse_args(argv)
-    print(json.dumps(spread(args.ours, args.ref, args.env, args.stem)),
-          flush=True)
+    if args.greedy:
+        with open(args.greedy) as f:
+            rates = json.load(f)
+        print(json.dumps(dict(row=rates["row"], seeds=rates["seeds"],
+                              port=rates["port"], jax=rates["jax"],
+                              rule=greedy_rule(rates["port"],
+                                               rates["jax"]))), flush=True)
+        return 0
+    print(json.dumps(spread(args.ours, args.ref, args.env, args.stem,
+                            args.below)), flush=True)
     return 0
 
 

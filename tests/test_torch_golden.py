@@ -226,7 +226,7 @@ def _must_fail_reason(key: str) -> str:
         return (f"{golden.OPEN_FAULTS[key]}: the committed port curve "
                 "misses its gate (ROADMAP queue C)")
     if key in golden.UNDERPOWERED:
-        return (f"too few seeds for the gate: the port passes over more "
+        return (f"the gate, not the port, misses "
                 f"({golden.UNDERPOWERED[key]})")
     return (f"stale reference: the JAX package at this commit misses the "
             f"same gate ({golden.STALE_REFERENCES[key]})")
@@ -253,11 +253,14 @@ def test_committed_port_curves_pass(row):
 def test_held_rows_are_rows():
     """Every key that ``OPEN_FAULTS``, ``STALE_REFERENCES``,
     ``UNDERPOWERED`` and ``NOT_COMPARABLE`` hold names a row, and no row is
-    in two of them; an ``UNDERPOWERED`` row names the row that shows it."""
+    in two of them; an ``UNDERPOWERED`` row names its evidence, a row that
+    shows it or a committed file."""
     keys = {golden.row_key(r) for r in golden.JAX_PARITY}
     held = [set(golden.OPEN_FAULTS), set(golden.STALE_REFERENCES),
             set(golden.UNDERPOWERED), set(golden.NOT_COMPARABLE)]
-    assert set(golden.UNDERPOWERED.values()) <= keys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    assert all(v in keys or os.path.isfile(os.path.join(root, v))
+               for v in golden.UNDERPOWERED.values())
     assert set().union(*held) <= keys
     assert sum(map(len, held)) == len(set().union(*held))
 
@@ -368,11 +371,11 @@ def test_jax_head_3_seed_stack_fails_the_committed_gate(monkeypatch):
 
 
 @pytest.mark.parametrize("held", ["open_fault", "stale_reference",
-                                  "underpowered", "none", "not_comparable",
-                                  "missing"])
+                                  "underpowered", "underpowered_file",
+                                  "none", "not_comparable", "missing"])
 def test_rows_held_to_fail(held, tmp_path, monkeypatch):
-    """A row under an open fault, a stale reference or too few seeds must
-    read FAIL:
+    """A row under an open fault or a stale reference, or whose gate, not
+    the port, misses (shown by a row or by a file) must read FAIL:
     ``must_fail`` names it, and ``chip_smoke.py``'s ``golden vs jax``
     passes while it fails and fails the phase once it passes; a row held
     to nothing fails the phase when it fails; a row of ``NOT_COMPARABLE``
@@ -400,6 +403,8 @@ def test_rows_held_to_fail(held, tmp_path, monkeypatch):
         golden.STALE_REFERENCES["Env-v0/X_3_seed"] = "Env-v0/evidence.json"
     elif held == "underpowered":
         golden.UNDERPOWERED["Env-v0/X_3_seed"] = "Env-v0/X_48_seed"
+    elif held == "underpowered_file":
+        golden.UNDERPOWERED["Env-v0/X_3_seed"] = "Env-v0/greedy.json"
     elif held == "not_comparable":
         golden.NOT_COMPARABLE["Env-v0/X_3_seed"] = "starts differ"
     elif held == "missing":
@@ -410,7 +415,8 @@ def test_rows_held_to_fail(held, tmp_path, monkeypatch):
         return
     assert golden.check_against_jax(row)["status"] == "FAIL"
     assert golden.must_fail("Env-v0/X_3_seed") == (
-        held in ("open_fault", "stale_reference", "underpowered"))
+        held in ("open_fault", "stale_reference", "underpowered",
+                 "underpowered_file"))
     if held == "none":
         with pytest.raises(AssertionError):
             chip_smoke.phase_golden_vs_jax()

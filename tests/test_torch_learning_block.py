@@ -1,0 +1,49 @@
+"""``chip_smoke.side_by_side``, the runner of the learning-check block, on
+the CPU with two tiny recipes (``tests/_torch_learning_child.py``): the
+checks run side by side, each in a spawned process, give the returns they
+give one after another in this process; a check that raises, or outlives
+the block's timeout, fails the block, naming it, and no child is left
+but the helpers `chip_smoke.stop_children` stops."""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from _torch_learning_child import tiny_check
+
+torch.set_num_threads(1)
+
+
+def test_side_by_side_gives_the_serial_returns():
+    runs, wall = chip_smoke.side_by_side(tiny_check, ["dqn", "ppo"],
+                                         args=("cpu",))
+    assert set(runs) == {"dqn", "ppo"} and wall > 0
+    for name, rec in runs.items():
+        serial = tiny_check(name, "cpu")
+        assert len(serial["returns"]) == 12
+        np.testing.assert_array_equal(rec["out"]["returns"],
+                                      serial["returns"])
+        assert rec["out"]["env_steps"] == serial["env_steps"]
+        assert rec["moved"] == [] and 0 < rec["seconds"] <= wall
+    assert chip_smoke.stop_children() == {}
+
+
+@pytest.mark.parametrize("name, why", [
+    ("raises", "raises: exit code 1"),
+    ("hangs", "hangs: still running after 10 s"),
+])
+def test_a_failed_check_fails_the_block(name, why):
+    with pytest.raises(AssertionError, match=why):
+        chip_smoke.side_by_side(tiny_check, ["dqn", name], args=("cpu",),
+                                timeout=10.0)
+    assert chip_smoke.stop_children() == {}
+
+
+def test_moved_rngs_names_the_states_a_draw_moves():
+    before = chip_smoke.global_rng_states()
+    assert chip_smoke.moved_rngs(before, chip_smoke.global_rng_states()) \
+        == []
+    torch.rand(1)
+    np.random.rand()
+    assert chip_smoke.moved_rngs(before, chip_smoke.global_rng_states()) \
+        == ["torch", "numpy"]

@@ -125,7 +125,7 @@ def test_rows_read_the_committed_jax_stacks():
     got = {golden.row_key(r): golden.check_against_jax(r)["ref_seeds"]
            for r in golden.JAX_PARITY
            if getattr(r, "ref", "committed") == "committed"
-           and r.regen[:1] == ("--algo",) and "--fixed_reset" in r.regen}
+           and r.note.startswith("r5 ")}
     assert got["Taxi-v3/DQN_1_seed"] == [-261.4]
     assert got["Pendulum-v1/DDPG_simple_3_seed"] == [-232.1, -242.0,
                                                      -126.9]
@@ -238,7 +238,7 @@ def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
     for row in golden.JAX_PARITY:
         if "--fixed_reset" not in row.regen:
             continue
-        for seed in row.regen_seeds:
+        for seed in {golden.start_seed(row, s) for s in row.regen_seeds}:
             if (row.env, seed) not in seen:
                 jobs, obs, draw = start_pair(row.env, seed)
                 jdraw = jax_reset_draw(row.env, jax.random.PRNGKey(seed))
@@ -249,8 +249,9 @@ def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
             if not seen[(row.env, seed)]:
                 want.add(golden.row_key(row))
     assert want == set(golden.NOT_COMPARABLE) == set()
-    # CartPole, Pendulum and LunarLander 3 seeds each, FrozenLake 16, Taxi 1
-    assert len(seen) == 3 * 3 + 16 + 1
+    # CartPole, Pendulum and LunarLander 3 starts each (SAC_16_seed's all
+    # pin seed 0's), FrozenLake 16, Taxi 1, MountainCar 12 (0-9, 10, 100)
+    assert len(seen) == 3 * 3 + 16 + 1 + 12
 
 
 def test_reset_starts_script_on_the_cpu(capsys):
