@@ -1052,6 +1052,85 @@ def mountaincar_rows() -> List[ParityRow]:
              "gate over its 3 seeds")]
 
 
+# the SPECS rows with a recipe that no other function here holds, by env and
+# stem, in the order their card runs are queued, longest first
+A2_STEMS = (("MountainCarContinuous-v0", "DDPG_OUNoise_3_seed"),
+            ("MountainCarContinuous-v0", "DDPG_simple_1_seed"),
+            ("CartPole-v1", "REINFORCE_3_seed"),
+            ("CartPole-v1", "DQN_3_seed"),
+            ("Pendulum-v1", "DQN_3_seed"),
+            ("MountainCarContinuous-v0", "PPO_ObsNorm_3_seed"))
+
+
+def a2_rows() -> List[ParityRow]:
+    """Each of ``A2_STEMS``' SPECS rows (its recipe, seeds, window, slack,
+    aggregate, slack mode and floor; stacked smoothed, as ``regenerate``
+    stacks it) against the JAX package's committed stack of its own stem
+    and against JAX at this commit. Both DDPG rows of SPECS take the
+    reference's ``DDPG_simple_1_seed`` curve; here ``DDPG_OUNoise_3_seed``
+    is held against the JAX package's own stack of that stem."""
+    rows = []
+    for env, stem in A2_STEMS:
+        spec = spec_of(env, stem)
+        note = f"SPECS {env}/{stem}"
+        if spec.ref_path.rsplit("/", 1)[-1] != f"{stem}.npy":
+            note += (f", held against the JAX package's {stem} stack (SPECS "
+                     f"takes the reference's {spec.ref_path})")
+        rows += [parity_row(spec, ref_path=f"{env}/{stem}.npy", ref=ref,
+                            note=note)
+                 for ref in ("committed", "jax_head")]
+    return rows
+
+
+# scripts/marl_curves.py's table (its lines 24-34): algo -> (env, episodes,
+# extra argv); each run takes 8 envs and seed 0
+MARL_RUNS = {
+    "MATD3": ("simple_spread_v3", 600, []),
+    "HAPPO": ("simple_spread_v3", 600, []),
+    "MAT": ("simple_spread_v3", 1500, []),
+    "IPPO": ("simple_adversary_v3", 600, []),
+    "MAAC": ("simple_spread_v3", 2000, []),
+    "RMAPPO": ("simple_spread_v3", 600, []),
+}
+# the slack of the rows whose SPECS row has a floor and no reference curve:
+# IPPO takes SPECS' slack for IPPO on its env (IPPO_L100_4_seed, the
+# reference's own draw spread), MAAC the slack SPECS gives every other N=3
+# simple_spread_v3 row of the 600-episode protocol
+MARL_SLACK = {"IPPO": 2.4, "MAAC": 5.0}
+
+
+def marl_argv(algo: str, seed, results_root: Optional[str] = None) -> list:
+    """The CLI argv scripts/marl_curves.py passes for one seed of ``algo``
+    (without ``--results_root`` and ``--no_tensorboard`` where
+    ``results_root`` is None)."""
+    env_name, episodes, extra = MARL_RUNS[algo]
+    out = ["--algo", algo, "--env_name", env_name, "--max_episodes",
+           str(episodes), "--num_envs", "8", "--seed", str(seed)]
+    if results_root is not None:
+        out += ["--results_root", results_root, "--no_tensorboard"]
+    return out + list(extra)
+
+
+def marl_rows(algo: str) -> List[ParityRow]:
+    """The algo's two rows, ``<env>/<ALGO>_1_seed`` over seed 0, against
+    the JAX package's committed curve (scripts/marl_curves.py's output) and
+    against JAX at this commit: the gate fields of the SPECS row of the
+    stem, with ``MARL_SLACK`` where that row has no reference curve, and
+    stacked raw, as the JAX script copies its run's curve."""
+    env_name = MARL_RUNS[algo][0]
+    stem = f"{algo}_1_seed"
+    spec = spec_of(env_name, stem)
+    note = f"marl_curves {algo}; JAX SPECS gate of {env_name}/{stem}"
+    if algo in MARL_SLACK:
+        note += f" with slack {MARL_SLACK[algo]}"
+    return [parity_row(spec, ref_path=f"{env_name}/{stem}.npy",
+                       slack=MARL_SLACK.get(algo, spec.slack),
+                       pending=False, note=note,
+                       regen=tuple(marl_argv(algo, "{seed}")),
+                       regen_seeds=(0,), ref=ref, smooth=False)
+            for ref in ("committed", "jax_head")]
+
+
 JAX_PARITY: List[GoldenSpec] = [
     GoldenSpec(
         # scripts/torch_northstar.py at 4096 envs x 8 updates x 150M env
@@ -1098,13 +1177,27 @@ JAX_PARITY: List[GoldenSpec] = [
         regen_seeds=DQN_LL_SEEDS16,
         note="r5 SAC_Pendulum over 16 seeds from seed 0's start; gate of "
              "Pendulum-v1/SAC_1_seed"),
-] + mountaincar_rows()
+] + mountaincar_rows() + a2_rows() + [
+    row for algo in MARL_RUNS for row in marl_rows(algo)] + [
+    # the recipes of Pendulum DQN (ROADMAP C14) and CartPole REINFORCE (C15)
+    # over the 16 seeds, against JAX at this commit
+    dataclasses.replace(row, algo=row.algo.replace("_3_", "_16_"),
+                        ref_path=row.ref_path.replace("_3_", "_16_"),
+                        regen_seeds=DQN_LL_SEEDS16,
+                        note=f"16 seeds of {row.note}")
+    for row in a2_rows() if row.ref == "jax_head"
+    and (row.env, row.algo) in (("Pendulum-v1", "DQN_3_seed"),
+                                ("CartPole-v1", "REINFORCE_3_seed"))]
 
 
 # rows of JAX_PARITY (by ``row_key``) whose committed port curve misses its
 # gate, with the open fault of ROADMAP's queue C that tracks each: such a
-# row must read FAIL until the fault is closed (none is open)
-OPEN_FAULTS: dict = {}
+# row must read FAIL until the fault is closed
+OPEN_FAULTS: dict = {
+    f"MountainCarContinuous-v0/{stem}{ref}": c
+    for stem, c in (("PPO_ObsNorm_3_seed", "C16"),
+                    ("DDPG_OUNoise_3_seed", "C17"))
+    for ref in ("", "@jax_head")}
 # rows whose seeds would train on another task in each package, each with
 # the reason: checked and printed, but held to nothing (neither a pass nor a
 # fault). ``--fixed_reset`` pins every episode to the start the seed draws,
@@ -1129,7 +1222,9 @@ STALE_REFERENCES: dict = {}
 # FrozenLake's best final-50 is a 50-episode sample of a
 # greedy-with-epsilon policy; each seed's final net scored greedily over
 # 1,000 episodes by one evaluator gives the port a best of 0.224 against
-# JAX's 0.234, Mann-Whitney p 0.939 over the 16 seeds a side
+# JAX's 0.234, Mann-Whitney p 0.939 over the 16 seeds a side. C14 and C15
+# closed by the rule for seeds over 16 a side: Pendulum DQN -186.6 against
+# -177.7 (p 0.109), CartPole REINFORCE 368.8 against 404.1 (p 0.356)
 UNDERPOWERED = {
     "LunarLander-v2/DQN_3_seed": "LunarLander-v2/DQN_48_seed@jax_head",
     "LunarLander-v2/DQN_16_seed@jax_head":
@@ -1138,6 +1233,9 @@ UNDERPOWERED = {
     "Pendulum-v1/SAC_1_seed@jax_head": "Pendulum-v1/SAC_16_seed@jax_head",
     "FrozenLake-v1/DQN_3_seed@jax_head": "results/torch/c12_greedy.json",
     "FrozenLake-v1/DQN_16_seed@jax_head": "results/torch/c12_greedy.json",
+    **{f"{env}/{stem}_3_seed{ref}": f"{env}/{stem}_16_seed@jax_head"
+       for env, stem in (("Pendulum-v1", "DQN"), ("CartPole-v1", "REINFORCE"))
+       for ref in ("", "@jax_head")},
 }
 
 
@@ -1372,15 +1470,20 @@ def stack_curves(spec: GoldenSpec, curves: List[np.ndarray],
                  out_dir: str) -> str:
     """Stack the per-seed curves as ``<out_dir>/<spec.algo>.npy``:
     smoothed (alpha 0.9) and cut to the shortest, or, for a row with
-    ``smooth=False``, raw and cut to the shortest. Returns its path."""
+    ``smooth=False``, raw and cut to the shortest. A multi-agent run's
+    curve, ``(episodes, n_agents)`` as both CLIs save it, is stacked as its
+    per-agent mean return per episode, the layout of the JAX package's
+    committed MARL curves (one row a run). Returns its path."""
     from freerl_tpu_torch.train.plotting import save_seed_stack
 
     if getattr(spec, "smooth", True):
         return save_seed_stack(curves, _label(spec), out_dir)
+    curves = [c.mean(axis=1) if c.ndim == 2 else c
+              for c in map(np.asarray, curves)]
     t = min(len(c) for c in curves)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, spec.algo + ".npy")
-    np.save(path, np.stack([np.asarray(c)[:t] for c in curves]))
+    np.save(path, np.stack([c[:t] for c in curves]))
     return path
 
 

@@ -249,9 +249,10 @@ def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
             if not seen[(row.env, seed)]:
                 want.add(golden.row_key(row))
     assert want == set(golden.NOT_COMPARABLE) == set()
-    # CartPole, Pendulum and LunarLander 3 starts each (SAC_16_seed's all
-    # pin seed 0's), FrozenLake 16, Taxi 1, MountainCar 12 (0-9, 10, 100)
-    assert len(seen) == 3 * 3 + 16 + 1 + 12
+    # CartPole, Pendulum, LunarLander and MountainCarContinuous 3 starts
+    # each (SAC_16_seed's all pin seed 0's), FrozenLake 16, Taxi 1,
+    # MountainCar 12 (0-9, 10, 100)
+    assert len(seen) == 4 * 3 + 16 + 1 + 12
 
 
 def test_reset_starts_script_on_the_cpu(capsys):
