@@ -177,7 +177,14 @@ Phases (any failure raises, and the script exits non-zero):
     card and on the CPU pins one start (the JAX package's draw, made on the
     host): the draws bit-equal, the start observations within
     ``golden.START_ULPS`` float32 ulps (``golden.same_start``);
-30. determinism: the same seed twice on the card, the records and every
+30. the N=5 multi-agent recipes (``golden.N5_RUNS``: the nine spread tags
+    at N=5, IPPO on the adversary at seed 0 and on layout 100 through
+    ``--reset_seed``, and MAPPO with attention at N=30), each built by the
+    port's CLI from its argv and trained on the card for a few episodes
+    (``n5_recipe``), side by side: finite records of ``(episodes,
+    n_agents)``, a learner step, the observations of the env at each
+    agent's width, no sum-tree launch;
+31. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
     after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
     seed 3 (the JAX package's tests/test_determinism.py configs), the main
@@ -200,13 +207,14 @@ Phases (any failure raises, and the script exits non-zero):
     PixelCartPole-v1 (32 envs, T 16) and one DQN update through the nature
     trunk at (84, 84, 4), batch 64 (the grads and the new state); every
     path is run and each that differs is named before the phase fails;
-31. stop the processes the run started and that would outlive it (the
+32. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
-32. print one JSON line describing each kernel (with its launches on the
+33. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
     on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
-    per-bench and north-star paths), the card line, and the result line.
+    per-bench, north-star and N=5 recipe paths), the card line, and the
+    result line.
 
 It needs no network, builds everything from the checkout, and leaves no
 process running when it exits, whether it passed or failed.
@@ -2717,17 +2725,18 @@ def phase_card_vs_cpu_slice6():
         f"pixels that differ, inner state max abs err) {json.dumps(flips)}")
 
 
-def sumtree_count(run):
+def sumtree_count(run, device: str = "cuda"):
     """``run()`` with the sum-tree kernel's count set to 0 just before
     and read just after: (its result, the launches, seconds)."""
     from freerl_tpu_torch.ops import sumtree
 
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
     sumtree.launches = 0
     t0 = time.time()
     out = run()
     launches = sumtree.launches
-    torch.cuda.synchronize()
+    sync()
     return out, launches, time.time() - t0
 
 
@@ -4471,6 +4480,110 @@ def phase_fixed_reset_starts() -> int:
     return len(seen)
 
 
+# how ``n5_recipe`` cuts each N=5 recipe: 8 episodes, the driver reading
+# its episode count every chunk or iteration; the off-policy drivers run
+# chunks of 64 vector steps (512 env steps: one burst of 8 learner steps
+# past ``start_steps`` 500), the on-policy ones one iteration; N=30 runs 2
+# episodes, its iteration at horizon 256 (15 Adam steps in place of 120)
+N5_SMOKE_EPISODES, N5_SMOKE_CHUNK = 8, 64
+N5_SMOKE_CUT = {"MAPPO_attention_N30": (2, ["--horizon", "256"])}
+# seconds the N=5 block may take: over four times the longest recipe alone
+N5_TIMEOUT_S = 300.0
+
+
+def mpe_widths(env_name: str, n: int) -> tuple:
+    """Each agent's observation width in the MPE scenario at ``n`` (the
+    spread's agents, the adversary's good agents), as PettingZoo's
+    scenarios define it."""
+    if env_name == "simple_spread_v3":
+        return (4 + 2 * n + 2 * (n - 1) + 2 * (n - 1),) * n
+    return (2 * 2 + 2 * n,) + (2 + 2 * 2 + 2 * n,) * n
+
+
+def n5_recipe(tag: str, device: str = "cuda") -> dict:
+    """One recipe of ``golden.N5_RUNS`` on ``device``, cut in depth: the
+    env and the algo the port's CLI builds from the recipe's argv
+    (``cli.build``: ``--N``, the tricks, the lrs, ``--fixed_reset``,
+    ``--reset_seed``) at the tag's first seed, trained by the driver
+    ``cli.run`` calls with the recipe's settings, cut as ``N5_SMOKE_CHUNK``
+    and ``N5_SMOKE_CUT`` say. The record must
+    be ``(episodes, n_agents)`` and finite, the learner must have stepped,
+    the env's observations must be ``(envs, n_agents, widest)`` with each
+    agent's width ``mpe_widths``, and the run must launch no sum-tree
+    kernel. Returns the launches, the run's seconds and a line to log."""
+    from freerl_tpu_torch import cli
+    from freerl_tpu_torch.train import (MARLConfig, OnPolicyConfig,
+                                        train_marl, train_onpolicy)
+    from freerl_tpu_torch.train import golden
+
+    _, env_name, _, extra = golden.N5_RUNS[tag]
+    seed = golden.N5_SEEDS.get(tag, (0,))[0]
+    episodes, cut = N5_SMOKE_CUT.get(tag, (N5_SMOKE_EPISODES, []))
+    n = int(extra[extra.index("--N") + 1]) if "--N" in extra else 2
+    argv = golden.n5_argv(tag, seed) + cut
+    args = cli.parser().parse_args(argv + ["--device", device])
+    env, algo = cli.build(args)
+    if args.algo in cli.MARL_OFF:
+        cfg = MARLConfig(seed=args.seed, num_envs=args.num_envs,
+                         max_episodes=episodes, start_steps=args.start_steps,
+                         updates_per_burst=args.updates_per_burst,
+                         chunk_size=N5_SMOKE_CHUNK, host_sync_every=1)
+        run = lambda: train_marl(env, algo, cfg)  # noqa: E731
+        steps = "updates"
+    else:
+        cfg = OnPolicyConfig(seed=args.seed, num_envs=args.num_envs,
+                             max_episodes=episodes, horizon=args.horizon,
+                             host_sync_every=1)
+        run = lambda: train_onpolicy(env, algo, cfg)  # noqa: E731
+        steps = "iterations"
+    (_, returns, info), launches, seconds = sumtree_count(run, device)
+    returns = np.asarray(returns)
+    widths = mpe_widths(env_name, n)
+    _, obs = env.reset(env.draw_reset(8, torch.Generator(device=device)))
+    agents = len(widths)
+    if not (returns.shape == (episodes, agents) and info[steps] > 0
+            and np.isfinite(returns).all()):
+        raise AssertionError(f"{tag}: record {returns.shape}, finite "
+                             f"{np.isfinite(returns).all()}, {info}")
+    if (tuple(env.agent_obs_dims) != widths
+            or tuple(obs.shape) != (8, agents, max(widths))
+            or not torch.isfinite(obs).all()):
+        raise AssertionError(f"{tag}: observations {tuple(obs.shape)}, "
+                             f"widths {env.agent_obs_dims}, expected "
+                             f"{widths}")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[n5 {tag}] {' '.join(argv)}: {episodes} episodes, "
+            f"{info['env_steps']} env steps, {info[steps]} {steps}, record "
+            f"{returns.shape}, agent-mean return "
+            f"{returns.mean(1).min():.2f} .. {returns.mean(1).max():.2f}, "
+            f"observations {tuple(obs.shape)} (widths "
+            f"{sorted(set(widths))}), sumtree launches {launches}, "
+            f"{seconds:.1f} s")
+    return dict(launches=launches, seconds=seconds, line=line)
+
+
+def phase_n5_recipes() -> int:
+    """Every recipe of ``golden.N5_RUNS`` at once (``side_by_side``), each
+    ``n5_recipe`` in a process of its own on the card. Logs each recipe's
+    line; fails if one failed or moved a global random state. Returns the
+    sum-tree launches."""
+    from freerl_tpu_torch.train import golden
+
+    runs, wall = side_by_side(n5_recipe, list(golden.N5_RUNS),
+                              timeout=N5_TIMEOUT_S)
+    for rec in runs.values():
+        log(rec["out"]["line"])
+    moved = {tag: rec["moved"] for tag, rec in runs.items() if rec["moved"]}
+    longest = max(rec["seconds"] for rec in runs.values())
+    log(f"[time] n5 recipes: {wall:.1f} s for {len(runs)} recipes side by "
+        f"side, the longest {longest:.1f} s")
+    if moved:
+        raise AssertionError(f"N=5 recipes drew from the global random "
+                             f"states: {moved}")
+    return sum(rec["out"]["launches"] for rec in runs.values())
+
+
 def phase_determinism() -> None:
     """The same seed twice on the card, for every config of
     ``determinism_runs``: the records and every tensor of the final algo
@@ -4575,6 +4688,7 @@ def main() -> int:
     kernel["launches_northstar"] = timed("northstar", phase_northstar)
     timed("golden vs jax", phase_golden_vs_jax)
     timed("fixed-reset starts", phase_fixed_reset_starts)
+    kernel["launches_n5"] = timed("n5 recipes", phase_n5_recipes)
     timed("determinism", phase_determinism)
     left = stop_children()
     if left:

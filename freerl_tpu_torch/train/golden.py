@@ -1060,6 +1060,12 @@ A2_STEMS = (("MountainCarContinuous-v0", "DDPG_OUNoise_3_seed"),
             ("CartPole-v1", "DQN_3_seed"),
             ("Pendulum-v1", "DQN_3_seed"),
             ("MountainCarContinuous-v0", "PPO_ObsNorm_3_seed"))
+# the A2 stems whose recipe is also a row over ``DQN_LL_SEEDS16`` against JAX
+# at this commit, for ROADMAP queue C's rule for seeds (C14-C17)
+SEEDS16_STEMS = (("Pendulum-v1", "DQN_3_seed"),
+                 ("CartPole-v1", "REINFORCE_3_seed"),
+                 ("MountainCarContinuous-v0", "PPO_ObsNorm_3_seed"),
+                 ("MountainCarContinuous-v0", "DDPG_OUNoise_3_seed"))
 
 
 def a2_rows() -> List[ParityRow]:
@@ -1131,6 +1137,77 @@ def marl_rows(algo: str) -> List[ParityRow]:
             for ref in ("committed", "jax_head")]
 
 
+# scripts/r5_marl_n5.py's table (its lines 43-73), the reference's N=5
+# protocol: tag -> (algo, env, episodes, extra argv); off-policy runs take
+# 8 envs x updates_per_burst 8 (1 update per env step)
+N5_RUNS = {
+    "MADDPG_N5": ("MADDPG", "simple_spread_v3", 600, ["--N", "5"] + _UPB),
+    "MATD3_N5": ("MATD3", "simple_spread_v3", 600, ["--N", "5"] + _UPB),
+    "MASAC_N5": ("MASAC", "simple_spread_v3", 600,
+                 ["--N", "5", "--actor_lr", "1e-3", "--critic_lr", "1e-3"]
+                 + _UPB),
+    "MAAC_N5": ("MAAC", "simple_spread_v3", 600,
+                ["--N", "5", "--actor_lr", "1e-3", "--critic_lr", "1e-3"]
+                + _UPB),
+    "MADDPG_ATT_N5": ("MADDPG", "simple_spread_v3", 600,
+                      ["--N", "5", "--trick", "ATT"] + _UPB),
+    "MAPPO_N5": ("MAPPO", "simple_spread_v3", 5000, ["--N", "5"]),
+    "MAPPO_attention_N5": ("MAPPO", "simple_spread_v3", 5000,
+                           ["--N", "5", "--trick", "attention"]),
+    "HAPPO_N5": ("HAPPO", "simple_spread_v3", 5000, ["--N", "5"]),
+    "MAT_N5": ("MAT", "simple_spread_v3", 7000,
+               ["--N", "5", "--discrete_actions", "--horizon", "256"]),
+    "IPPO_5000": ("IPPO", "simple_adversary_v3", 5000, []),
+    "IPPO_L100": ("IPPO", "simple_adversary_v3", 5000,
+                  ["--reset_seed", "100"]),
+    "MAPPO_attention_N30": ("MAPPO", "simple_spread_v3", 5000,
+                            ["--N", "30", "--trick", "attention"]),
+}
+# each tag's seeds where not the script's 0 / 10 / 100: the four IPPO_L100
+# runs of the committed IPPO_L100_4_seed stack, all on layout 100
+# (results/r5_marl_fixups.log records 100 and 1100; the JAX package at this
+# commit gives 3100 and 4100 the first episodes of its last two rows, as
+# close as it gives 100 and 1100 theirs, tests/test_torch_r5_marl_n5.py),
+# and the one N=30 run
+N5_SEEDS = {"IPPO_L100": (100, 1100, 3100, 4100), "MAPPO_attention_N30": (0,)}
+# the slack of IPPO_5000, whose SPECS row has a floor only: MARL_SLACK's
+# rule for IPPO (SPECS' slack for IPPO on its env)
+N5_SLACK = {"IPPO_5000": MARL_SLACK["IPPO"]}
+
+
+def n5_argv(tag: str, seed, results_root: Optional[str] = None) -> list:
+    """The CLI argv scripts/r5_marl_n5.py passes for one seed of ``tag``
+    (fixed reset, 8 envs; without ``--results_root`` and
+    ``--no_tensorboard`` where ``results_root`` is None)."""
+    algo, env_name, episodes, extra = N5_RUNS[tag]
+    out = ["--algo", algo, "--env_name", env_name, "--max_episodes",
+           str(episodes), "--num_envs", "8", "--seed", str(seed)]
+    if results_root is not None:
+        out += ["--results_root", results_root, "--no_tensorboard"]
+    return out + list(extra) + ["--fixed_reset"]
+
+
+def n5_rows(tag: str) -> List[ParityRow]:
+    """The tag's two rows, ``<env>/<TAG>_<k>_seed`` over its seeds, against
+    the JAX package's committed stack (scripts/r5_marl_n5.py's output) and
+    against JAX at this commit: the gate fields of the SPECS row of the
+    stem (with ``N5_SLACK``), stacked raw as the per-agent mean return per
+    episode, as the JAX script stacks it."""
+    env_name = N5_RUNS[tag][1]
+    seeds = N5_SEEDS.get(tag, (0, 10, 100))
+    stem = f"{tag}_{len(seeds)}_seed"
+    spec = spec_of(env_name, stem)
+    note = f"r5_marl_n5 {tag}; JAX SPECS gate of {env_name}/{stem}"
+    if tag in N5_SLACK:
+        note += f" with slack {N5_SLACK[tag]}"
+    return [parity_row(spec, ref_path=f"{env_name}/{stem}.npy", ref_paths=(),
+                       slack=N5_SLACK.get(tag, spec.slack),
+                       pending=False, note=note,
+                       regen=tuple(n5_argv(tag, "{seed}")),
+                       regen_seeds=seeds, ref=ref, smooth=False)
+            for ref in ("committed", "jax_head")]
+
+
 JAX_PARITY: List[GoldenSpec] = [
     GoldenSpec(
         # scripts/torch_northstar.py at 4096 envs x 8 updates x 150M env
@@ -1179,25 +1256,30 @@ JAX_PARITY: List[GoldenSpec] = [
              "Pendulum-v1/SAC_1_seed"),
 ] + mountaincar_rows() + a2_rows() + [
     row for algo in MARL_RUNS for row in marl_rows(algo)] + [
-    # the recipes of Pendulum DQN (ROADMAP C14) and CartPole REINFORCE (C15)
-    # over the 16 seeds, against JAX at this commit
+    # the recipes of Pendulum DQN (ROADMAP C14), CartPole REINFORCE (C15),
+    # MountainCarContinuous PPO ObsNorm (C16) and DDPG OUNoise (C17) over
+    # the 16 seeds, against JAX at this commit
     dataclasses.replace(row, algo=row.algo.replace("_3_", "_16_"),
                         ref_path=row.ref_path.replace("_3_", "_16_"),
                         regen_seeds=DQN_LL_SEEDS16,
                         note=f"16 seeds of {row.note}")
     for row in a2_rows() if row.ref == "jax_head"
-    and (row.env, row.algo) in (("Pendulum-v1", "DQN_3_seed"),
-                                ("CartPole-v1", "REINFORCE_3_seed"))]
+    and (row.env, row.algo) in SEEDS16_STEMS] + [
+    row for tag in N5_RUNS for row in n5_rows(tag)]
 
 
 # rows of JAX_PARITY (by ``row_key``) whose committed port curve misses its
 # gate, with the open fault of ROADMAP's queue C that tracks each: such a
-# row must read FAIL until the fault is closed
+# row must read FAIL until the fault is closed. C16's recipe over 16 seeds
+# misses its gate too (11 of 16 port seeds solve, 12 of 16 JAX seeds); C18
+# is MAAC at N=5 (seed 10 -27.2: the port's mean -17.4 against -9.3
+# committed and -13.3 at this commit, which itself misses the committed
+# gate)
 OPEN_FAULTS: dict = {
-    f"MountainCarContinuous-v0/{stem}{ref}": c
-    for stem, c in (("PPO_ObsNorm_3_seed", "C16"),
-                    ("DDPG_OUNoise_3_seed", "C17"))
-    for ref in ("", "@jax_head")}
+    **{f"MountainCarContinuous-v0/PPO_ObsNorm_{stem}": "C16"
+       for stem in ("3_seed", "3_seed@jax_head", "16_seed@jax_head")},
+    **{f"simple_spread_v3/MAAC_N5_3_seed{ref}": "C18"
+       for ref in ("", "@jax_head")}}
 # rows whose seeds would train on another task in each package, each with
 # the reason: checked and printed, but held to nothing (neither a pass nor a
 # fault). ``--fixed_reset`` pins every episode to the start the seed draws,
@@ -1222,9 +1304,11 @@ STALE_REFERENCES: dict = {}
 # FrozenLake's best final-50 is a 50-episode sample of a
 # greedy-with-epsilon policy; each seed's final net scored greedily over
 # 1,000 episodes by one evaluator gives the port a best of 0.224 against
-# JAX's 0.234, Mann-Whitney p 0.939 over the 16 seeds a side. C14 and C15
-# closed by the rule for seeds over 16 a side: Pendulum DQN -186.6 against
-# -177.7 (p 0.109), CartPole REINFORCE 368.8 against 404.1 (p 0.356)
+# JAX's 0.234, Mann-Whitney p 0.939 over the 16 seeds a side. C14, C15
+# and C17 closed by the rule for seeds over 16 a side: Pendulum DQN -186.6
+# against -177.7 (p 0.109), CartPole REINFORCE 368.8 against 404.1 (p
+# 0.356), MountainCarContinuous DDPG OUNoise's best seed 88.8 against 89.4
+# (gate 88.4, p 0.33)
 UNDERPOWERED = {
     "LunarLander-v2/DQN_3_seed": "LunarLander-v2/DQN_48_seed@jax_head",
     "LunarLander-v2/DQN_16_seed@jax_head":
@@ -1234,7 +1318,8 @@ UNDERPOWERED = {
     "FrozenLake-v1/DQN_3_seed@jax_head": "results/torch/c12_greedy.json",
     "FrozenLake-v1/DQN_16_seed@jax_head": "results/torch/c12_greedy.json",
     **{f"{env}/{stem}_3_seed{ref}": f"{env}/{stem}_16_seed@jax_head"
-       for env, stem in (("Pendulum-v1", "DQN"), ("CartPole-v1", "REINFORCE"))
+       for env, stem in (("Pendulum-v1", "DQN"), ("CartPole-v1", "REINFORCE"),
+                         ("MountainCarContinuous-v0", "DDPG_OUNoise"))
        for ref in ("", "@jax_head")},
 }
 

@@ -275,7 +275,9 @@ def main(argv=None) -> int:
                     default=os.path.join(ROOT, "results", "torch"))
     ap.add_argument("--log_dir",
                     default=os.path.join(ROOT, "build", "golden_card"))
-    args = ap.parse_args(argv)
+    # rows may come on either side of the options (the shims put theirs
+    # first and hand on the caller's arguments after them)
+    args = ap.parse_intermixed_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_golden_card: no CUDA card; pass --device cpu to run on "
               "the CPU", file=sys.stderr)

@@ -99,8 +99,10 @@ def test_fixed_reset_rows_pin_the_jax_start(key):
                                  golden.pinned_start(row, seed)), seed
 
 
-@pytest.mark.parametrize("row", [r for r in A2 if r.ref == "jax_head"],
-                         ids=golden.row_key)
+@pytest.mark.parametrize("row", [r for r in A2 if r.ref == "jax_head"] + [
+    r for r in golden.JAX_PARITY if "_16_seed" in r.algo and (
+        r.env, r.algo.replace("_16_", "_3_")) in golden.SEEDS16_STEMS],
+    ids=golden.row_key)
 def test_jax_head_stacks_are_the_jax_packages_smoothing(row):
     """The JAX-at-HEAD stack of each row is the JAX package's own
     ``aggregate_seeds`` of its kept seeds, in the row's seed order, each
@@ -153,13 +155,18 @@ def test_c14_c15_rows_are_underpowered_by_the_rule_for_seeds(env, label):
 
 
 def test_c16_c17_rows_are_open_faults():
-    """The MountainCarContinuous rows that miss both references and whose
-    recipe did not run over 16 seeds stay open faults, and read FAIL."""
-    want = {f"MountainCarContinuous-v0/{stem}{ref}": c
-            for stem, c in (("PPO_ObsNorm_3_seed", "C16"),
-                            ("DDPG_OUNoise_3_seed", "C17"))
-            for ref in ("", "@jax_head")}
-    assert golden.OPEN_FAULTS == want
+    """The MountainCarContinuous rows that miss both references: C16's
+    stay open faults (its recipe over 16 seeds misses its gate too, and
+    that row is held with them), C17's left ``OPEN_FAULTS`` for
+    ``UNDERPOWERED`` by the rule for seeds (tests/test_torch_c16_c17.py);
+    every one of them reads FAIL."""
+    env = "MountainCarContinuous-v0"
+    want = {f"{env}/PPO_ObsNorm_{stem}": "C16"
+            for stem in ("3_seed", "3_seed@jax_head", "16_seed@jax_head")}
+    assert {k: c for k, c in golden.OPEN_FAULTS.items()
+            if k.startswith(env)} == want
     for row in A2:
-        if golden.row_key(row) in want:
+        key = golden.row_key(row)
+        if key in want or key.startswith(f"{env}/DDPG_OUNoise_3_seed"):
             assert golden.check_against_jax(row)["status"] == "FAIL"
+            assert golden.must_fail(key)

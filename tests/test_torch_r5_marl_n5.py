@@ -1,0 +1,375 @@
+"""``scripts/torch_r5_marl_n5.py`` against the JAX package's
+``scripts/r5_marl_n5.py``: the same table, the same CLI argv (read by
+running a copy of the JAX script with its CLI stubbed, so nothing is written
+into ``results/learning_curves/``), each tag's two parity rows with the gate
+of the JAX ``SPECS`` row of its stem, the committed N=5 stacks they read,
+and the start every fixed-reset N=5 and N=30 recipe pins against the JAX
+env's reset."""
+import dataclasses
+import hashlib
+import importlib.util
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import freerl_tpu.cli
+from freerl_tpu.train import golden as jax_golden
+from freerl_tpu_torch.train import golden
+from scripts import r5_marl_n5 as jax_n5
+from scripts import torch_golden_card as card
+from scripts import torch_r5_marl_n5 as n5
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GATE = ("window", "agg", "slack_mode", "overlap_gate", "floor")
+# each tag's (slack, floor, committed JAX per-seed final-50)
+TABLE = {
+    "MADDPG_N5": (10.7, None, [-12.9, -9.7, -7.9]),
+    "MATD3_N5": (4.0, None, [-15.4, -12.2, -7.7]),
+    "MASAC_N5": (4.0, None, [-13.6, -8.1, -7.5]),
+    "MAAC_N5": (4.0, None, [-11.0, -8.4, -8.5]),
+    "MADDPG_ATT_N5": (6.9, None, [-17.0, -28.6, -9.2]),
+    "MAPPO_N5": (4.0, None, [-12.6, -17.8, -9.6]),
+    "MAPPO_attention_N5": (4.0, None, [-11.1, -7.9, -9.2]),
+    "HAPPO_N5": (6.3, None, [-11.3, -11.6, -9.0]),
+    "MAT_N5": (6.2, None, [-18.1, -8.5, -8.2]),
+    "IPPO_5000": (2.4, -3.0, [-1.7, 0.9, 1.3]),
+    "IPPO_L100": (2.4, None, [1.4, 1.4, 1.5, 1.5]),
+    "MAPPO_attention_N30": (10.0, None, [-63.1]),
+}
+
+
+def test_runs_are_the_jax_scripts():
+    assert golden.N5_RUNS == jax_n5.RUNS
+    assert n5.RUNS is golden.N5_RUNS
+    assert list(golden.N5_RUNS) == list(TABLE)
+
+
+def _digest(root) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = \
+                    hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_argvs(tmp_path_factory):
+    """Every argv the JAX script passes its CLI, by tag and seed: a copy of
+    the script, in a temporary repo root, run with a stub CLI that saves a
+    short ``(episodes, n_agents)`` curve; once over its default seeds and
+    once over IPPO_L100's four."""
+    tmp = tmp_path_factory.mktemp("n5")
+    os.makedirs(tmp / "scripts")
+    shutil.copy(jax_n5.__file__, tmp / "scripts" / "r5_marl_n5.py")
+    spec = importlib.util.spec_from_file_location(
+        "_n5_copy", tmp / "scripts" / "r5_marl_n5.py")
+    copy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(copy)
+    seen = []
+
+    def stub(argv):
+        seen.append(list(argv))
+        algo, seed = argv[1], argv[argv.index("--seed") + 1]
+        run_dir = tmp / "runs" / str(len(seen))
+        os.makedirs(run_dir, exist_ok=True)
+        np.save(run_dir / f"{algo}_seed_{seed}.npy", np.zeros((4, 3)))
+        return str(run_dir)
+
+    before = _digest(os.path.join(ROOT, "results", "learning_curves"))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(freerl_tpu.cli, "run", stub)
+    out = {}
+    try:
+        for extra, tags, seeds in (
+                ([], list(jax_n5.RUNS), (0, 10, 100)),
+                (["--only", "IPPO_L100", "--seeds", "100,1100,3100,4100",
+                  "--force"], ["IPPO_L100"], (100, 1100, 3100, 4100))):
+            mp.setattr(sys, "argv", ["r5_marl_n5.py", "--results_root", "R"]
+                       + extra)
+            start = len(seen)
+            assert copy.main() == 0
+            keys = [(t, s) for t in tags for s in seeds]
+            out.update(zip(keys, seen[start:]))
+            assert len(seen) - start == len(keys)
+    finally:
+        mp.undo()
+    # the JAX script's copy wrote into its own root only
+    assert _digest(os.path.join(ROOT, "results", "learning_curves")) == \
+        before
+    assert os.path.isfile(tmp / "results" / "learning_curves" /
+                          "simple_adversary_v3" / "IPPO_L100_4_seed.npy")
+    return out
+
+
+@pytest.mark.parametrize("tag", list(TABLE))
+def test_argv_is_the_jax_scripts(tag, jax_argvs):
+    """The argv of every seed of the tag, as the JAX script passes it, with
+    ``--fixed_reset`` last."""
+    for seed in golden.N5_SEEDS.get(tag, (0, 10, 100)):
+        assert golden.n5_argv(tag, seed, "R") == jax_argvs[(tag, seed)]
+        argv = golden.n5_argv(tag, seed)
+        assert argv[-1] == "--fixed_reset" and "--results_root" not in argv
+
+
+@pytest.mark.parametrize("tag", list(TABLE))
+def test_rows_take_the_jax_gate(tag):
+    """Both rows of a tag: the stem the JAX script writes, the tag's seeds,
+    its argv (with ``{seed}``), a raw stack, no reference-tree paths, and
+    the gate of the JAX SPECS row of the stem, with the slack and floor of
+    ``TABLE``."""
+    env_name = golden.N5_RUNS[tag][1]
+    seeds = golden.N5_SEEDS.get(tag, (0, 10, 100))
+    stem = f"{tag}_{len(seeds)}_seed"
+    want = next(s for s in jax_golden.SPECS if (s.env, s.algo) ==
+                (env_name, stem))
+    rows = [r for r in golden.JAX_PARITY if (r.env, r.algo) ==
+            (env_name, stem)]
+    assert [r.ref for r in rows] == ["committed", "jax_head"]
+    slack, floor, _ = TABLE[tag]
+    for row in rows:
+        assert [getattr(row, f) for f in GATE] == [
+            getattr(want, f) for f in GATE]
+        assert (row.slack, row.floor) == (slack, floor)
+        if tag not in golden.N5_SLACK:
+            assert row.slack == want.slack
+        assert row.regen_seeds == seeds and not row.smooth
+        assert row.ref_paths == () and not row.pending
+        assert row.ref_path == f"{env_name}/{stem}.npy"
+        assert [a.format(seed=seeds[0]) for a in row.regen] == \
+            golden.n5_argv(tag, seeds[0])
+        assert tag in row.note
+    assert golden.row_key(rows[1]) == golden.row_key(rows[0]) + "@jax_head"
+
+
+@pytest.mark.parametrize("tag", list(TABLE))
+def test_committed_references(tag):
+    """The committed stack of each tag's stem: one raw row a seed of the
+    per-agent mean return, as many episodes as the recipe's, and the
+    per-seed final-50 of ``TABLE``."""
+    row = golden.n5_rows(tag)[0]
+    stack = np.load(os.path.join(golden.JAX_CURVES_ROOT, row.ref_path))
+    assert stack.shape == (len(row.regen_seeds), golden.N5_RUNS[tag][2])
+    assert golden.check_against_jax(row)["ref_seeds"] == TABLE[tag][2]
+
+
+def test_ippo_l100_seeds_are_the_4_seed_stacks():
+    """IPPO_L100's four seeds, all on layout 100: the log records 100 and
+    1100 (the committed 2-seed stack, the first two rows of the 4-seed
+    one); the JAX package at this commit gives 3100 and 4100 the first
+    episodes of the last two rows as close as it gives the recorded seeds
+    theirs (the committed curves ran on a TPU: the CPU parts from them by
+    up to 0.02 over the first episodes, while two seeds part by whole
+    units)."""
+    two = np.load(os.path.join(golden.JAX_CURVES_ROOT, "simple_adversary_v3",
+                               "IPPO_L100_2_seed.npy"))
+    four = np.load(os.path.join(golden.JAX_CURVES_ROOT,
+                                "simple_adversary_v3",
+                                "IPPO_L100_4_seed.npy"))
+    np.testing.assert_array_equal(four[:2], two)
+    with open(os.path.join(ROOT, "results", "r5_marl_fixups.log")) as f:
+        log = f.read()
+    seeds = golden.N5_SEEDS["IPPO_L100"]
+    for seed in seeds[:2]:
+        assert f"IPPO_L100 seed {seed}: IPPO on simple_adversary_v3 " \
+               f"(5000 eps) --reset_seed 100" in log
+    head = golden.n5_rows("IPPO_L100")[1]
+    first = np.stack([np.load(golden.seed_file(
+        golden.JAX_HEAD_ROOT, head, s))[:3].mean(axis=1) for s in seeds])
+    gap = np.abs(first[:, None] - four[None, :, :3]).max(axis=2)
+    np.testing.assert_array_less(np.diag(gap), 0.02)
+    assert (gap + np.eye(4) * 10).min() > 1.0
+
+
+# how far the committed stacks' first episode may lie from the JAX
+# package's at this commit: the committed curves ran on a TPU, whose
+# default matmul precision rounds the untrained policy's outputs otherwise
+# than the CPU's float32 (0.0245 at most, over the first 8 episodes of
+# every continuous-action tag); MAT samples discrete actions, where such a
+# rounding can flip an action (seed 100 bit-equal, 0 and 10 within 0.66)
+FIRST_EPISODE_ATOL = {"MAT_N5": 1.0}
+
+
+@pytest.mark.parametrize("tag", list(TABLE))
+def test_committed_and_jax_head_first_episodes_agree(tag):
+    """The JAX package's committed stack of a tag and its rerun at this
+    commit, stacked as the port stacks it (the per-agent mean of the CLI's
+    ``(episodes, n_agents)`` curve, cut to the recipe's episodes), begin
+    every seed with the same first episode, within
+    ``FIRST_EPISODE_ATOL`` (0.03 by default): both start each episode
+    from the one state the seed pins, with the untrained policy."""
+    committed, head = golden.n5_rows(tag)
+    stack = np.load(os.path.join(golden.JAX_CURVES_ROOT, committed.ref_path))
+    rerun = np.load(os.path.join(golden.JAX_HEAD_ROOT, head.ref_path))
+    assert rerun.shape == stack.shape
+    for i, seed in enumerate(head.regen_seeds):
+        curve = np.load(golden.seed_file(golden.JAX_HEAD_ROOT, head, seed))
+        assert curve.ndim == 2 and curve.shape[0] >= stack.shape[1]
+        np.testing.assert_array_equal(rerun[i], curve.mean(axis=1)[
+            :stack.shape[1]])
+    np.testing.assert_allclose(rerun[:, 0], stack[:, 0], rtol=0,
+                               atol=FIRST_EPISODE_ATOL.get(tag, 0.03))
+
+
+@pytest.mark.parametrize("tag", list(TABLE))
+def test_jax_head_seeds_ran_the_recipe(tag):
+    """Each kept JAX seed of a tag ran the row's recipe with the JAX
+    package's CLI on the CPU, from the start the port pins."""
+    head = golden.n5_rows(tag)[1]
+    with open(os.path.join(golden.JAX_HEAD_ROOT, head.env,
+                           "provenance.json")) as f:
+        prov = json.load(f)
+    assert prov["stacks"][head.algo]["seeds"] == list(head.regen_seeds)
+    for seed in head.regen_seeds:
+        assert golden.kept_seed(golden.JAX_HEAD_ROOT, head, seed)
+        rec = prov["seeds"][os.path.basename(
+            golden.seed_file("", head, seed))]
+        assert rec["device"] == "cpu" and rec["env_steps"] > 0
+
+
+def test_maac_n5_is_an_open_fault(monkeypatch):
+    """MAAC at N=5 misses both references (seed 10 reads -27.2), so both
+    rows keep their gates and read FAIL under ``OPEN_FAULTS`` (C18); the
+    JAX package at this commit misses the committed gate as well."""
+    committed, head = golden.n5_rows("MAAC_N5")
+    for row in (committed, head):
+        key = golden.row_key(row)
+        assert golden.OPEN_FAULTS[key] == "C18"
+        assert golden.check_against_jax(row)["status"] == "FAIL"
+    monkeypatch.setattr(golden, "OURS_ROOT", golden.JAX_HEAD_ROOT)
+    assert golden.check_against_jax(committed)["status"] == "FAIL"
+
+
+class _Built(Exception):
+    pass
+
+
+def _jax_start(row, seed) -> np.ndarray:
+    """The start the JAX package's CLI pins for one seed of ``row``'s
+    recipe: its env, built by the CLI's ``build`` from the argv (stopped
+    before training), reset once."""
+    import jax
+
+    real = freerl_tpu.cli.build
+
+    def build(args):
+        raise _Built(real(args)[0])
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(freerl_tpu.cli, "build", build)
+    try:
+        freerl_tpu.cli.run([a.format(seed=seed) for a in row.regen])
+    except _Built as e:
+        env = e.args[0]
+    finally:
+        mp.undo()
+    _, obs = env.reset(jax.random.PRNGKey(7))
+    return np.asarray(obs)
+
+
+@pytest.mark.parametrize("tag", ["MAPPO_N5", "MAPPO_attention_N30",
+                                 "IPPO_L100", "IPPO_5000"])
+def test_fixed_reset_start_against_the_jax_env(tag):
+    """Every seed of an N=5, N=30 or adversary recipe pins in the port the
+    start the JAX package's CLI pins: the observations of every agent, at
+    the scenario's widths (zero-padded to the widest), within
+    ``golden.START_ULPS`` float32 ulps; IPPO_L100's two seeds both start on
+    layout 100."""
+    from chip_smoke import mpe_widths
+
+    row = golden.n5_rows(tag)[0]
+    extra = golden.N5_RUNS[tag][3]
+    widths = mpe_widths(row.env, int(extra[extra.index("--N") + 1])
+                        if "--N" in extra else 2)
+    starts = set()
+    for seed in row.regen_seeds:
+        _, obs = golden.pinned(row, seed)
+        jobs = _jax_start(row, seed)
+        assert jobs.shape == (len(widths), max(widths))
+        assert golden.same_start(obs, jobs.reshape(-1).tolist()), seed
+        starts.add(tuple(obs))
+    want = 1 if "--reset_seed" in row.regen else len(row.regen_seeds)
+    assert len(starts) == want
+
+
+@pytest.mark.parametrize("tag", ["MADDPG_N5", "MAT_N5", "IPPO_L100"])
+def test_chip_smoke_n5_recipe_on_the_cpu(tag):
+    """``chip_smoke.py``'s cut of a recipe on the CPU: the env and algo the
+    CLI builds, one chunk or iteration with a learner step, a finite
+    ``(8, n_agents)`` record, the observations at the scenario's widths,
+    no sum-tree launch."""
+    import chip_smoke
+
+    got = chip_smoke.n5_recipe(tag, "cpu")
+    assert got["launches"] == 0 and "record (8, " in got["line"]
+
+
+def test_unknown_tags_are_refused():
+    assert n5.row_keys(["MAT_N5"]) == ["simple_spread_v3/MAT_N5_3_seed"]
+    with pytest.raises(KeyError):
+        n5.row_keys(["QMIX_N5"])
+    with pytest.raises(KeyError):
+        n5.main(["--probe", "4", "--only", "QMIX_N5", "--device", "cpu"])
+
+
+def test_probe_on_the_cpu(tmp_path, capsys):
+    """``--probe``: seed 0 of a tag for a few episodes, its speed and the
+    seconds a seed it projects, no curve kept under the port's tree."""
+    tree = os.path.join(ROOT, "results", "torch")
+    before = _digest(tree)
+    rc = n5.main(["--probe", "4", "--only", "MAT_N5", "--device", "cpu",
+                  "--log_dir", str(tmp_path)])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert rc == 0 and _digest(tree) == before
+    rec, tail = lines
+    assert rec["tag"] == "MAT_N5" and rec["rc"] == 0
+    assert rec["episodes"] >= 4 and rec["b1_launches"] == 0
+    assert rec["projected_s_a_seed"] > rec["loop_s"] > 0
+    assert tail["card"] is None and tail["left_running"] == {}
+
+
+def test_cpu_run_writes_only_under_its_root(tmp_path, monkeypatch, capsys):
+    """IPPO_L100's four seeds on the CPU, cut to 3 episodes, through the
+    script and the card runner: the seeds kept as ``--reset_seed 100``
+    seeds and stacked raw under the results root it is given, every row
+    printed, and nothing written into the JAX package's curves or the
+    port's committed tree."""
+    monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path / "curves"))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the CLI child's threads
+    row = golden.n5_rows("IPPO_L100")[0]
+    tiny = list(row.regen)
+    tiny[tiny.index("--max_episodes") + 1] = "3"
+    monkeypatch.setattr(golden, "JAX_PARITY", [
+        dataclasses.replace(r, regen=tuple(tiny))
+        if r.algo == row.algo else r for r in golden.JAX_PARITY])
+    trees = [os.path.join(ROOT, "results", "learning_curves"),
+             os.path.join(ROOT, "results", "torch")]
+    before = [_digest(t) for t in trees]
+    rc = n5.main(["--only", "IPPO_L100", "--device", "cpu", "--per_card",
+                  "4", "--results_root", str(tmp_path / "runs"),
+                  "--log_dir", str(tmp_path / "l")])
+    out = capsys.readouterr().out
+    assert [_digest(t) for t in trees] == before
+    seeds = tmp_path / "curves" / "simple_adversary_v3" / "seeds"
+    kept = [np.load(seeds / f"IPPO_L100_reset100_seed_{s}.npy")
+            for s in golden.N5_SEEDS["IPPO_L100"]]
+    assert all(k.shape == (3, 3) for k in kept)
+    stack = np.load(tmp_path / "curves" / "simple_adversary_v3" /
+                    "IPPO_L100_4_seed.npy")
+    np.testing.assert_array_equal(stack, np.stack([k.mean(axis=1)
+                                                   for k in kept]))
+    assert os.path.isfile(tmp_path / "l" / "curves" / "simple_adversary_v3"
+                          / "IPPO_L100_4_seed.npy")
+    assert "simple_adversary_v3/IPPO_L100_4_seed@jax_head" in out
+    assert card.parity_row("simple_adversary_v3/IPPO_L100_4_seed").regen \
+        == tuple(tiny)
+    assert rc in (0, 1)        # a 3-episode curve may miss the gate

@@ -251,8 +251,11 @@ def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
     assert want == set(golden.NOT_COMPARABLE) == set()
     # CartPole, Pendulum, LunarLander and MountainCarContinuous 3 starts
     # each (SAC_16_seed's all pin seed 0's), FrozenLake 16, Taxi 1,
-    # MountainCar 12 (0-9, 10, 100)
-    assert len(seen) == 4 * 3 + 16 + 1 + 12
+    # MountainCar 12 (0-9, 10, 100), MountainCarContinuous 13 more (DDPG
+    # OUNoise over 16 seeds), simple_spread_v3 and simple_adversary_v3 3
+    # each (the N=5 matrix; IPPO_L100's pin seed 100's; each recipe's
+    # starts at its own agent count: tests/test_torch_r5_marl_n5.py)
+    assert len(seen) == 4 * 3 + 16 + 1 + 12 + 13 + 2 * 3
 
 
 def test_reset_starts_script_on_the_cpu(capsys):
