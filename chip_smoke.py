@@ -181,9 +181,13 @@ Phases (any failure raises, and the script exits non-zero):
     at N=5, IPPO on the adversary at seed 0 and on layout 100 through
     ``--reset_seed``, and MAPPO with attention at N=30), each built by the
     port's CLI from its argv and trained on the card for a few episodes
-    (``n5_recipe``), side by side: finite records of ``(episodes,
-    n_agents)``, a learner step, the observations of the env at each
-    agent's width, no sum-tree launch;
+    (``n5_recipe``), and, in the same block, scripts/train_spread.py's
+    MASAC run (``golden.SPREAD_RUNS``: the JAX script's config through the
+    CLI's argv, 16 envs, batch 256, a replay of 1e6, random resets) for 3
+    chunks (``spread_recipe``), side by side: finite records of
+    ``(episodes, n_agents)``, a learner step, the observations of the env
+    at each agent's width, ``golden.bin_curve`` of the MASAC record, no
+    sum-tree launch;
 31. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
     after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
@@ -213,8 +217,8 @@ Phases (any failure raises, and the script exits non-zero):
 33. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
     on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
-    per-bench, north-star and N=5 recipe paths), the card line, and the
-    result line.
+    per-bench, north-star, N=5 recipe and spread recipe paths), the card
+    line, and the result line.
 
 It needs no network, builds everything from the checkout, and leaves no
 process running when it exits, whether it passed or failed.
@@ -4563,25 +4567,97 @@ def n5_recipe(tag: str, device: str = "cuda") -> dict:
     return dict(launches=launches, seconds=seconds, line=line)
 
 
-def phase_n5_recipes() -> int:
-    """Every recipe of ``golden.N5_RUNS`` at once (``side_by_side``), each
-    ``n5_recipe`` in a process of its own on the card. Logs each recipe's
-    line; fails if one failed or moved a global random state. Returns the
-    sum-tree launches."""
+# how ``spread_recipe`` cuts scripts/train_spread.py's run: whole chunks of
+# the recipe (128 vector steps of 16 envs), the first crossing
+# ``start_steps`` and the two after it wholly past it
+SPREAD_SMOKE_CHUNKS, SPREAD_SMOKE_BINS = 3, 8
+
+
+def spread_recipe(tag: str, device: str = "cuda") -> dict:
+    """The run of ``golden.SPREAD_RUNS`` on ``device``, cut in depth: the
+    env and the algo the port's CLI builds from ``golden.spread_argv``
+    (the JAX script's config: 16 envs, batch 256, a replay of 1e6, the lrs
+    1e-4, random resets), trained by ``train_marl`` with the recipe's
+    settings for ``SPREAD_SMOKE_CHUNKS`` chunks. The algo's config must be
+    the script's, the record ``(episodes, n_agents)`` and finite, the
+    learner must have stepped on every vector step of the last two chunks,
+    ``golden.bin_curve`` of the record must give ``SPREAD_SMOKE_BINS``
+    finite bin means (its binning is pinned against the committed curve in
+    ``tests/test_torch_train_spread.py``), and the run must launch no
+    sum-tree kernel. Returns
+    the launches, the run's seconds and a line to log."""
+    from freerl_tpu_torch import cli
+    from freerl_tpu_torch.train import MARLConfig, golden, train_marl
+
+    _, _, _, seed, num_envs, chunk, upb = golden.SPREAD_RUNS[tag]
+    argv = golden.spread_argv(tag, seed)
+    args = cli.parser().parse_args(argv + ["--device", device])
+    env, algo = cli.build(args)
+    want = dict(batch_size=256, buffer_size=1_000_000, actor_lr=1e-4,
+                critic_lr=1e-4, alpha_lr=1e-4, num_envs=num_envs)
+    got = {k: getattr(algo.cfg, k) for k in want}
+    if got != want or "--fixed_reset" in argv:
+        raise AssertionError(f"{tag}: config {got}, expected {want}")
+    steps = SPREAD_SMOKE_CHUNKS * chunk * num_envs
+    cfg = MARLConfig(seed=args.seed, num_envs=args.num_envs,
+                     max_episodes=10**9, max_env_steps=steps,
+                     start_steps=args.start_steps,
+                     updates_per_burst=args.updates_per_burst,
+                     chunk_size=chunk, host_sync_every=1)
+    (_, returns, info), launches, seconds = sumtree_count(
+        lambda: train_marl(env, algo, cfg), device)
+    returns = np.asarray(returns)
+    binned = golden.bin_curve(returns, SPREAD_SMOKE_BINS)
+    if not (returns.ndim == 2 and returns.shape[1] == env.n_agents
+            and len(returns) >= SPREAD_SMOKE_BINS
+            and np.isfinite(returns).all()
+            and info["env_steps"] == steps
+            and 2 * chunk * upb <= info["updates"] < steps // num_envs):
+        raise AssertionError(f"{tag}: record {returns.shape}, finite "
+                             f"{np.isfinite(returns).all()}, {info}")
+    if binned.shape != (SPREAD_SMOKE_BINS,) or not np.isfinite(binned).all():
+        raise AssertionError(f"{tag}: bin_curve {binned}")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[spread {tag}] {' '.join(argv)}: {SPREAD_SMOKE_CHUNKS} chunks, "
+            f"{info['env_steps']} env steps, {info['updates']} updates, "
+            f"record {returns.shape}, {SPREAD_SMOKE_BINS} bin means "
+            f"{binned.min():.2f} .. {binned.max():.2f}, sumtree launches "
+            f"{launches}, {seconds:.1f} s")
+    return dict(launches=launches, seconds=seconds, line=line)
+
+
+def recipe(tag: str, device: str = "cuda") -> dict:
+    """``spread_recipe`` for a tag of ``golden.SPREAD_RUNS``, else
+    ``n5_recipe``."""
     from freerl_tpu_torch.train import golden
 
-    runs, wall = side_by_side(n5_recipe, list(golden.N5_RUNS),
-                              timeout=N5_TIMEOUT_S)
+    fn = spread_recipe if tag in golden.SPREAD_RUNS else n5_recipe
+    return fn(tag, device)
+
+
+def phase_recipes() -> dict:
+    """Every recipe of ``golden.N5_RUNS`` and of ``golden.SPREAD_RUNS`` at
+    once (``side_by_side``), each ``n5_recipe`` or ``spread_recipe`` in a
+    process of its own on the card. Logs each recipe's line; fails if one
+    failed or moved a global random state. Returns the sum-tree launches of
+    each table, by ``n5`` and ``spread``."""
+    from freerl_tpu_torch.train import golden
+
+    tags = list(golden.N5_RUNS) + list(golden.SPREAD_RUNS)
+    runs, wall = side_by_side(recipe, tags, timeout=N5_TIMEOUT_S)
     for rec in runs.values():
         log(rec["out"]["line"])
     moved = {tag: rec["moved"] for tag, rec in runs.items() if rec["moved"]}
     longest = max(rec["seconds"] for rec in runs.values())
-    log(f"[time] n5 recipes: {wall:.1f} s for {len(runs)} recipes side by "
-        f"side, the longest {longest:.1f} s")
+    log(f"[time] n5 and spread recipes: {wall:.1f} s for {len(runs)} "
+        f"recipes side by side, the longest {longest:.1f} s")
     if moved:
-        raise AssertionError(f"N=5 recipes drew from the global random "
-                             f"states: {moved}")
-    return sum(rec["out"]["launches"] for rec in runs.values())
+        raise AssertionError(f"recipes drew from the global random states: "
+                             f"{moved}")
+    return {name: sum(rec["out"]["launches"] for tag, rec in runs.items()
+                      if (tag in golden.SPREAD_RUNS) == (name == "spread"))
+            for name in ("n5", "spread")}
 
 
 def phase_determinism() -> None:
@@ -4688,7 +4764,9 @@ def main() -> int:
     kernel["launches_northstar"] = timed("northstar", phase_northstar)
     timed("golden vs jax", phase_golden_vs_jax)
     timed("fixed-reset starts", phase_fixed_reset_starts)
-    kernel["launches_n5"] = timed("n5 recipes", phase_n5_recipes)
+    recipes = timed("n5 and spread recipes", phase_recipes)
+    kernel["launches_n5"], kernel["launches_spread"] = (recipes["n5"],
+                                                        recipes["spread"])
     timed("determinism", phase_determinism)
     left = stop_children()
     if left:

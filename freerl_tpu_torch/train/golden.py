@@ -915,6 +915,10 @@ class ParityRow(GoldenSpec):
     # how the seeds are stacked: smoothed (alpha 0.9) as ``regenerate``
     # stacks them, or raw and cut to the shortest, as scripts/r5_singles.py
     smooth: bool = True
+    # with ``smooth`` off, the bins each raw curve is averaged into before
+    # it is stacked (``bin_curve``, as scripts/train_spread.py's curve was
+    # cut to 600 points); 0 for none
+    bins: int = 0
 
 
 def parity_row(spec: GoldenSpec, **changes) -> ParityRow:
@@ -1208,6 +1212,75 @@ def n5_rows(tag: str) -> List[ParityRow]:
             for ref in ("committed", "jax_head")]
 
 
+# scripts/train_spread.py's run (its argparse defaults, lines 24-35): tag ->
+# (algo, env, episodes, seed, envs, chunk_size, updates_per_burst), with
+# random resets (the script takes no --fixed_reset). The CLI's training
+# loop takes MARLConfig's chunk, 128, the script's
+SPREAD_RUNS = {"MASAC_40k": ("MASAC", "simple_spread_v3", 40_000, 0, 16, 128,
+                             1)}
+# the script builds ``MASACConfig(num_envs=16)``, whose batch (256) and
+# replay (1e6) are not the CLI's defaults (64, 2e5), and whose lrs (1e-4)
+# the CLI keeps when it is given none
+SPREAD_CONFIG_ARGV = ["--batch_size", "256", "--buffer_size", "1000000"]
+# the script's curve is kept as 600 bin means (freerl_tpu/train/golden.py's
+# MASAC_40k row); the slack holds the port to the FreeRL reference's -10.4,
+# the bar that row holds the JAX package to at slack 0
+SPREAD_BINS, SPREAD_SLACK = 600, 2.8
+
+
+def spread_argv(tag: str, seed, results_root: Optional[str] = None) -> list:
+    """The port's CLI argv that builds the algorithm config and the
+    ``MARLConfig`` scripts/train_spread.py builds for one seed of ``tag``
+    (without ``--results_root`` and ``--no_tensorboard`` where
+    ``results_root`` is None)."""
+    algo, env_name, episodes, _, num_envs, _, upb = SPREAD_RUNS[tag]
+    out = ["--algo", algo, "--env_name", env_name, "--max_episodes",
+           str(episodes), "--num_envs", str(num_envs), "--seed", str(seed)]
+    if results_root is not None:
+        out += ["--results_root", results_root, "--no_tensorboard"]
+    return out + ["--updates_per_burst", str(upb)] + SPREAD_CONFIG_ARGV
+
+
+def bin_curve(curve, n_bins: int = SPREAD_BINS) -> np.ndarray:
+    """A run's curve as ``n_bins`` bin means: the per-agent mean return per
+    episode of an ``(episodes, n_agents)`` curve (a 1-D curve as it is),
+    averaged over bins whose edges are ``np.linspace(0, episodes, n_bins +
+    1).astype(int)`` (66 or 67 episodes a bin at 40,000 and 600)."""
+    c = np.asarray(curve)
+    c = c.mean(axis=1) if c.ndim == 2 else c
+    edges = np.linspace(0, len(c), n_bins + 1).astype(int)
+    return np.array([c[a:b].mean() for a, b in zip(edges[:-1], edges[1:])],
+                    dtype=c.dtype)
+
+
+def spread_rows(tag: str) -> List[ParityRow]:
+    """The tag's two rows, ``<env>/<TAG>_1_seed``, against the JAX
+    package's committed stack and against JAX at this commit: the SPECS
+    row's window with ``SPREAD_SLACK``, the recipe ``spread_argv``, and
+    each run stacked as ``bin_curve`` of its raw curve."""
+    _, env_name, _, seed, _, _, _ = SPREAD_RUNS[tag]
+    stem = f"{tag}_1_seed"
+    spec = spec_of(env_name, stem)
+    note = (f"train_spread {tag}; JAX SPECS window of {env_name}/{stem}, "
+            f"{SPREAD_BINS} bins, slack {SPREAD_SLACK}")
+    return [parity_row(spec, ref_path=f"{env_name}/{stem}.npy", ref_paths=(),
+                       slack=SPREAD_SLACK, pending=False, note=note,
+                       regen=tuple(spread_argv(tag, "{seed}")),
+                       regen_seeds=(seed,), ref=ref, smooth=False,
+                       bins=SPREAD_BINS)
+            for ref in ("committed", "jax_head")]
+
+
+def more_seeds(row: ParityRow, seeds: tuple) -> ParityRow:
+    """A 3-seed ``@jax_head`` row's recipe and gate over ``seeds``, its stem
+    ``_3_`` made ``_<k>_``."""
+    k = f"_{len(seeds)}_"
+    return dataclasses.replace(
+        row, algo=row.algo.replace("_3_", k),
+        ref_path=row.ref_path.replace("_3_", k), regen_seeds=seeds,
+        note=f"{len(seeds)} seeds of {row.note}")
+
+
 JAX_PARITY: List[GoldenSpec] = [
     GoldenSpec(
         # scripts/torch_northstar.py at 4096 envs x 8 updates x 150M env
@@ -1259,27 +1332,28 @@ JAX_PARITY: List[GoldenSpec] = [
     # the recipes of Pendulum DQN (ROADMAP C14), CartPole REINFORCE (C15),
     # MountainCarContinuous PPO ObsNorm (C16) and DDPG OUNoise (C17) over
     # the 16 seeds, against JAX at this commit
-    dataclasses.replace(row, algo=row.algo.replace("_3_", "_16_"),
-                        ref_path=row.ref_path.replace("_3_", "_16_"),
-                        regen_seeds=DQN_LL_SEEDS16,
-                        note=f"16 seeds of {row.note}")
+    more_seeds(row, DQN_LL_SEEDS16)
     for row in a2_rows() if row.ref == "jax_head"
     and (row.env, row.algo) in SEEDS16_STEMS] + [
-    row for tag in N5_RUNS for row in n5_rows(tag)]
+    row for tag in N5_RUNS for row in n5_rows(tag)] + [
+    # C16's recipe over the 48 seeds and C18's over the 16 (ROADMAP queue
+    # C's rules for seeds), against JAX at this commit
+    more_seeds(next(r for r in a2_rows() if row_key(r) ==
+                    "MountainCarContinuous-v0/PPO_ObsNorm_3_seed@jax_head"),
+               DQN_LL_SEEDS48),
+    more_seeds(n5_rows("MAAC_N5")[1], DQN_LL_SEEDS16),
+] + [row for tag in SPREAD_RUNS for row in spread_rows(tag)]
 
 
 # rows of JAX_PARITY (by ``row_key``) whose committed port curve misses its
 # gate, with the open fault of ROADMAP's queue C that tracks each: such a
-# row must read FAIL until the fault is closed. C16's recipe over 16 seeds
-# misses its gate too (11 of 16 port seeds solve, 12 of 16 JAX seeds); C18
-# is MAAC at N=5 (seed 10 -27.2: the port's mean -17.4 against -9.3
-# committed and -13.3 at this commit, which itself misses the committed
-# gate)
+# row must read FAIL until the fault is closed. C16's recipe over 16 and
+# over 48 seeds misses its gate too (36 of 48 port seeds solve, 39 of 48
+# JAX seeds: mean 69.7 against a gate of 70.9)
 OPEN_FAULTS: dict = {
-    **{f"MountainCarContinuous-v0/PPO_ObsNorm_{stem}": "C16"
-       for stem in ("3_seed", "3_seed@jax_head", "16_seed@jax_head")},
-    **{f"simple_spread_v3/MAAC_N5_3_seed{ref}": "C18"
-       for ref in ("", "@jax_head")}}
+    f"MountainCarContinuous-v0/PPO_ObsNorm_{stem}": "C16"
+    for stem in ("3_seed", "3_seed@jax_head", "16_seed@jax_head",
+                 "48_seed@jax_head")}
 # rows whose seeds would train on another task in each package, each with
 # the reason: checked and printed, but held to nothing (neither a pass nor a
 # fault). ``--fixed_reset`` pins every episode to the start the seed draws,
@@ -1290,8 +1364,11 @@ NOT_COMPARABLE: dict = {}
 # rows whose committed port curve misses a committed JAX curve that the JAX
 # package at this commit misses too (ROADMAP's rule for a stale reference),
 # each with the file that shows it: such a row keeps its gate and must read
-# FAIL
-STALE_REFERENCES: dict = {}
+# FAIL. MAAC at N=5: JAX at this commit reads -13.33 over the three seeds
+# against the committed gate's -13.31 (C18)
+STALE_REFERENCES: dict = {
+    "simple_spread_v3/MAAC_N5_3_seed":
+        "results/torch/jax_head/simple_spread_v3/MAAC_N5_3_seed.npy"}
 # rows whose gate, not the port, misses, each with the evidence: the row of
 # the same recipe over more seeds that shows it, or the committed file that
 # does. Such a row keeps its gate and must read FAIL. By ROADMAP queue C's
@@ -1308,8 +1385,11 @@ STALE_REFERENCES: dict = {}
 # and C17 closed by the rule for seeds over 16 a side: Pendulum DQN -186.6
 # against -177.7 (p 0.109), CartPole REINFORCE 368.8 against 404.1 (p
 # 0.356), MountainCarContinuous DDPG OUNoise's best seed 88.8 against 89.4
-# (gate 88.4, p 0.33)
+# (gate 88.4, p 0.33), and C18: MAAC at N=5 over 16 seeds -15.5 against
+# -12.0 (gate -16.0, p 0.057)
 UNDERPOWERED = {
+    "simple_spread_v3/MAAC_N5_3_seed@jax_head":
+        "simple_spread_v3/MAAC_N5_16_seed@jax_head",
     "LunarLander-v2/DQN_3_seed": "LunarLander-v2/DQN_48_seed@jax_head",
     "LunarLander-v2/DQN_16_seed@jax_head":
         "LunarLander-v2/DQN_48_seed@jax_head",
@@ -1547,6 +1627,7 @@ def stack_record(spec: GoldenSpec) -> dict:
     stack."""
     return {spec.algo: dict(
         seeds=list(spec.regen_seeds), smoothed=getattr(spec, "smooth", True),
+        **({"bins": spec.bins} if getattr(spec, "bins", 0) else {}),
         files=[os.path.basename(seed_file("", spec, s))
                for s in spec.regen_seeds])}
 
@@ -1558,13 +1639,15 @@ def stack_curves(spec: GoldenSpec, curves: List[np.ndarray],
     ``smooth=False``, raw and cut to the shortest. A multi-agent run's
     curve, ``(episodes, n_agents)`` as both CLIs save it, is stacked as its
     per-agent mean return per episode, the layout of the JAX package's
-    committed MARL curves (one row a run). Returns its path."""
+    committed MARL curves (one row a run), and, for a row with ``bins``,
+    as that mean's ``bin_curve``. Returns its path."""
     from freerl_tpu_torch.train.plotting import save_seed_stack
 
     if getattr(spec, "smooth", True):
         return save_seed_stack(curves, _label(spec), out_dir)
-    curves = [c.mean(axis=1) if c.ndim == 2 else c
-              for c in map(np.asarray, curves)]
+    bins = getattr(spec, "bins", 0)
+    curves = [bin_curve(c, bins) if bins else c.mean(axis=1) if c.ndim == 2
+              else c for c in map(np.asarray, curves)]
     t = min(len(c) for c in curves)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, spec.algo + ".npy")

@@ -43,6 +43,9 @@ cut; their rows stay absent (``missing``). No child outlives the script. It
 exits non-zero if a job failed or was cut, or a row fails its gate that is
 not held to fail (``golden.breaks_hold``). It runs on the card; without one
 it exits non-zero unless ``--device cpu`` asks for the CPU.
+
+``probe`` is the shims' ``--probe`` (``scripts/torch_r5_marl_n5.py``,
+``scripts/torch_train_spread.py``): each passes its own table and argv.
 """
 from __future__ import annotations
 
@@ -66,6 +69,10 @@ from chip_smoke import card_line  # noqa: E402
 from freerl_tpu_torch.train import golden  # noqa: E402
 
 NORTHSTAR = "LunarLander-v2/DQN_fast_1_seed"
+# where a probe's run dirs go: git-ignored and out of any log dir, since an
+# off-policy run dir's checkpoint holds its whole replay ring
+PROBE_RUNS_ROOT = os.path.join(ROOT, "results", "torch", "golden_runs",
+                               "probe")
 
 
 def parity_row(key: str) -> golden.GoldenSpec:
@@ -251,6 +258,69 @@ def stack_rows(keys: list, jobs: list, log_dir: str) -> None:
                                     stack[:, -spec.window:].mean(1)],
             "returns": [[round(float(x), 2) for x in s] for s in stack]}),
             flush=True)
+
+
+def probe_jobs(tags, episodes: int, device: str, runs_root: str,
+               argv_of) -> list:
+    """One job a tag: seed 0 of its argv (``argv_of(tag, seed,
+    results_root)``, a shim's recipe) for ``episodes`` episodes."""
+    jobs = []
+    for tag in tags:
+        argv = argv_of(tag, 0, results_root=runs_root)
+        argv[argv.index("--max_episodes") + 1] = str(episodes)
+        jobs.append(dict(name=f"probe_{tag}", row=tag, argv=[
+            sys.executable, "-m", "freerl_tpu_torch.cli", *argv,
+            "--device", device]))
+    return jobs
+
+
+def probe_record(job: dict, runs: dict) -> dict:
+    """What one probe job's log says of its speed, and the seconds a seed of
+    the tag's full recipe (its episodes, ``runs[tag][2]``) projects."""
+    out = dict(tag=job["row"], rc=job.get("rc"), seconds=job.get("seconds"))
+    if job.get("rc") != 0:
+        return out
+    with open(job["log"]) as f:
+        info = golden.parse_run_log(f.read())
+    loop_s = info["env_steps"] / max(info["steps_per_s"], 1)
+    per_episode = loop_s / info["episodes"]
+    full = runs[job["row"]][2]
+    out.update(episodes=info["episodes"], env_steps=info["env_steps"],
+               b1_launches=info.get("b1_launches"),
+               loop_s=round(loop_s, 2), s_per_episode=round(per_episode, 5),
+               projected_s_a_seed=round(
+                   per_episode * full + job["seconds"] - loop_s, 1))
+    return out
+
+
+def probe(tags, episodes: int, argv, argv_of, runs: dict,
+          log_dir: str) -> int:
+    """A shim's ``--probe EPISODES``: seed 0 of each tag of ``runs`` (the
+    shim's table, its argv ``argv_of``) for ``episodes`` episodes, with the
+    options in ``argv`` (``--per_card``, ``--device``, ``--deadline``,
+    ``--log_dir``, by default ``log_dir``, and ``--runs_root``, by default
+    ``PROBE_RUNS_ROOT``). Prints a record a tag and the card's line."""
+    pa = argparse.ArgumentParser()
+    pa.add_argument("--per_card", type=int, default=1)
+    pa.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    pa.add_argument("--deadline", type=float, default=None)
+    pa.add_argument("--log_dir", default=log_dir)
+    pa.add_argument("--runs_root", default=PROBE_RUNS_ROOT)
+    p = pa.parse_args(argv)
+    from chip_smoke import stop_children
+
+    os.makedirs(p.log_dir, exist_ok=True)
+    jobs = probe_jobs(tags, episodes, p.device, p.runs_root, argv_of)
+    try:
+        run_jobs(jobs, p.device, p.log_dir, p.deadline, p.per_card)
+    finally:
+        left = stop_children()
+    for j in jobs:
+        print(json.dumps(probe_record(j, runs)), flush=True)
+    print(json.dumps({"per_card": p.per_card, "device": p.device,
+                      "card": card_line() if p.device == "cuda" else None,
+                      "left_running": left}), flush=True)
+    return 0 if not left and all(j.get("rc") == 0 for j in jobs) else 1
 
 
 def main(argv=None) -> int:

@@ -196,9 +196,9 @@ def test_cpu_run_stacks_raw(tmp_path, monkeypatch, capsys):
 def test_gate_rows_are_dataclass_copies():
     """``parity_row`` keeps every field of the spec it copies."""
     row = golden.parity_row(golden.SPECS[0], ref="jax_head")
-    assert dataclasses.astuple(row)[:-2] == dataclasses.astuple(
+    assert dataclasses.astuple(row)[:-3] == dataclasses.astuple(
         golden.SPECS[0])
-    assert (row.ref, row.smooth) == ("jax_head", True)
+    assert (row.ref, row.smooth, row.bins) == ("jax_head", True, 0)
 
 
 def test_fixed_reset_starts_are_each_packages_own_draw():
@@ -254,8 +254,9 @@ def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
     # MountainCar 12 (0-9, 10, 100), MountainCarContinuous 13 more (DDPG
     # OUNoise over 16 seeds), simple_spread_v3 and simple_adversary_v3 3
     # each (the N=5 matrix; IPPO_L100's pin seed 100's; each recipe's
-    # starts at its own agent count: tests/test_torch_r5_marl_n5.py)
-    assert len(seen) == 4 * 3 + 16 + 1 + 12 + 13 + 2 * 3
+    # starts at its own agent count: tests/test_torch_r5_marl_n5.py), and
+    # simple_spread_v3 13 more (MAAC_N5 over 16 seeds)
+    assert len(seen) == 4 * 3 + 16 + 1 + 12 + 13 + 2 * 3 + 13
 
 
 def test_reset_starts_script_on_the_cpu(capsys):
