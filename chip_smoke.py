@@ -146,11 +146,12 @@ Phases (any failure raises, and the script exits non-zero):
     into a temporary directory;
 24. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
-    simple_spread_v3), seed 0, side by side: each in a spawned process of
-    its own on the card (``side_by_side``), all joined before the next
-    phase; the mean return of the last episodes must clear each recipe's
-    threshold, a check that fails or outlives ``LEARNING_TIMEOUT_S``
-    fails the run, and no check may move a global random state;
+    simple_spread_v3), seed 0, side by side with the recipes of 30: each
+    in a spawned process of its own on the card (``side_by_side``), all
+    joined before the next phase; the mean return of the last episodes
+    must clear each check's threshold, a check that fails or outlives
+    ``LEARNING_TIMEOUT_S`` (a recipe, ``N5_TIMEOUT_S``) fails the run, and
+    none may move a global random state;
 25. the port's bench (``freerl_tpu_torch/bench.py``): ``bench_dqn`` at
     the headline size (4096 envs, chunk 256, 2 measured chunks), its env
     steps counted, its rate finite, its peak memory printed, no sum-tree
@@ -161,8 +162,8 @@ Phases (any failure raises, and the script exits non-zero):
     launches the sum-tree kernel once per ``sample``, cumsum never;
 27. the north-star run (``scripts/torch_northstar.py``'s ``run_point``: DQN
     on LunarLander-v2, replay 2^20, batch 256, 4096 envs, 8 updates per
-    vector step) for 16 chunks of 64 vector steps: exactly 4,194,304 env
-    steps and 8,184 updates, a finite record, no sum-tree launch; its
+    vector step) for 8 chunks of 64 vector steps: exactly 2,097,152 env
+    steps and 4,088 updates, a finite record, no sum-tree launch; its
     steady env-steps/s with the card's name and power limit;
 28. the parity gate of ``golden.JAX_PARITY``: the port's committed curves
     against the JAX package's curves of the same stem, or, for a row keyed
@@ -177,16 +178,22 @@ Phases (any failure raises, and the script exits non-zero):
     card and on the CPU pins one start (the JAX package's draw, made on the
     host): the draws bit-equal, the start observations within
     ``golden.START_ULPS`` float32 ulps (``golden.same_start``);
-30. the N=5 multi-agent recipes (``golden.N5_RUNS``: the nine spread tags
+30. in the block of 24, the N=5 multi-agent recipes (``golden.N5_RUNS``:
+    the nine spread tags
     at N=5, IPPO on the adversary at seed 0 and on layout 100 through
     ``--reset_seed``, and MAPPO with attention at N=30), each built by the
     port's CLI from its argv and trained on the card for a few episodes
-    (``n5_recipe``), and, in the same block, scripts/train_spread.py's
+    (``n5_recipe``), scripts/train_spread.py's
     MASAC run (``golden.SPREAD_RUNS``: the JAX script's config through the
     CLI's argv, 16 envs, batch 256, a replay of 1e6, random resets) for 3
-    chunks (``spread_recipe``), side by side: finite records of
+    chunks (``spread_recipe``), and scripts/envelope_seed_sweep.sh's
+    ENVELOPE run (``golden.ENVELOPE_RUNS``: 1 env, batch 256, a replay of
+    1e6, one learner step an env step) for 3 chunks, then the
+    100-preference sweep of scripts/torch_envelope_e2e.py on the state it
+    reached (``envelope_recipe``): finite records of
     ``(episodes, n_agents)``, a learner step, the observations of the env
-    at each agent's width, ``golden.bin_curve`` of the MASAC record, no
+    at each agent's width, ``golden.bin_curve`` of the MASAC record, 100
+    finite sweep returns with precision, recall and CR in [0, 1], no
     sum-tree launch;
 31. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
@@ -217,7 +224,8 @@ Phases (any failure raises, and the script exits non-zero):
 33. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
     on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
-    per-bench, north-star, N=5 recipe and spread recipe paths), the card
+    per-bench, north-star, N=5 recipe, spread recipe and envelope recipe
+    paths), the card
     line, and the result line.
 
 It needs no network, builds everything from the checkout, and leaves no
@@ -3622,33 +3630,54 @@ def side_by_side(fn, names, args: tuple = (),
         return out, time.time() - t0
 
 
+def block_task(name: str) -> dict:
+    """One process of ``phase_learning_block``: the learning check
+    ``name`` of ``LEARNING_CHECKS``, else the recipe ``name``."""
+    return phase_learning(name) if name in LEARNING_CHECKS else recipe(name)
+
+
 def phase_learning_block() -> dict:
-    """Every check of ``LEARNING_CHECKS`` at once (``side_by_side``), each
-    ``phase_learning`` unchanged in a process of its own on the card. Logs
-    each check's line and seconds; fails if a check failed, or moved a
-    global random state (the phases after the block then get the states
-    a serial run of the checks would have left them). Returns the sum-tree
-    launches of the on-policy and of the multi-agent checks ("onpolicy",
-    "marl")."""
-    runs, wall = side_by_side(phase_learning, list(LEARNING_CHECKS))
-    launches = dict(onpolicy=0, marl=0)
-    moved = {}
+    """Every check of ``LEARNING_CHECKS`` and every recipe of
+    ``RECIPE_TABLES`` at once (``side_by_side``), each ``phase_learning``
+    or ``recipe`` unchanged in a process of its own on the card. Logs each
+    line and seconds; fails if one failed, a recipe took more than
+    ``N5_TIMEOUT_S``, or one moved a global random state (the phases after
+    the block then get the states a serial run would have left them).
+    Returns the sum-tree launches of the on-policy and of the multi-agent
+    checks ("onpolicy", "marl") and of each table of recipes (its name in
+    ``RECIPE_TABLES``)."""
+    from freerl_tpu_torch.train import golden
+
+    tables = {tag: name for name, table, _ in RECIPE_TABLES
+              for tag in getattr(golden, table)}
+    runs, wall = side_by_side(block_task, list(LEARNING_CHECKS) +
+                              list(tables))
+    launches = dict(onpolicy=0, marl=0,
+                    **{name: 0 for name, _, _ in RECIPE_TABLES})
+    moved, late = {}, {}
     for name, rec in runs.items():
         log(rec["out"]["line"])
-        log(f"[time] learning {name}: {rec['seconds']:.1f} s (side by side)")
-        driver = LEARNING_CHECKS[name].get("driver")
+        kind = "recipe" if name in tables else "learning"
+        log(f"[time] {kind} {name}: {rec['seconds']:.1f} s (side by side)")
+        driver = tables.get(name, LEARNING_CHECKS.get(name, {}).get("driver"))
         if driver in launches:
             launches[driver] += rec["out"]["launches"]
+        if name in tables and rec["seconds"] > N5_TIMEOUT_S:
+            late[name] = rec["seconds"]
         if rec["moved"]:
             moved[name] = rec["moved"]
-    longest = max(rec["seconds"] for rec in runs.values())
-    log(f"[time] learning block: {wall:.1f} s for {len(runs)} checks side "
-        f"by side, {wall / longest:.2f}x the longest check ({longest:.1f} s)"
-        f"; the checks' own times sum to "
+    longest = max(runs[name]["seconds"] for name in LEARNING_CHECKS)
+    log(f"[time] learning block: {wall:.1f} s for {len(LEARNING_CHECKS)} "
+        f"checks and {len(tables)} recipes side by side, "
+        f"{wall / longest:.2f}x the longest check ({longest:.1f} s); the "
+        f"checks' and recipes' own times sum to "
         f"{sum(rec['seconds'] for rec in runs.values()):.1f} s")
+    if late:
+        raise AssertionError(f"recipes took over {N5_TIMEOUT_S:.0f} s: "
+                             f"{late}")
     if moved:
-        raise AssertionError(f"learning checks drew from the global random "
-                             f"states: {moved}")
+        raise AssertionError(f"checks or recipes drew from the global "
+                             f"random states: {moved}")
     return launches
 
 
@@ -4373,12 +4402,12 @@ def determinism_runs() -> dict:
     return runs
 
 
-NORTHSTAR_ENVS, NORTHSTAR_UPB, NORTHSTAR_CHUNKS = 4096, 8, 16
+NORTHSTAR_ENVS, NORTHSTAR_UPB, NORTHSTAR_CHUNKS = 4096, 8, 8
 
 
 def phase_northstar() -> int:
     """``scripts/torch_northstar.py``'s ``run_point`` at the north-star
-    point (4096 envs, 8 updates per vector step) for 16 chunks of 64 vector
+    point (4096 envs, 8 updates per vector step) for 8 chunks of 64 vector
     steps: the exact env-step and update counts (learning starts on the
     second vector step, past ``start_steps`` 4096), a finite record, no
     sum-tree launch (uniform replay). Returns B1's launches."""
@@ -4491,7 +4520,8 @@ def phase_fixed_reset_starts() -> int:
 # episodes, its iteration at horizon 256 (15 Adam steps in place of 120)
 N5_SMOKE_EPISODES, N5_SMOKE_CHUNK = 8, 64
 N5_SMOKE_CUT = {"MAPPO_attention_N30": (2, ["--horizon", "256"])}
-# seconds the N=5 block may take: over four times the longest recipe alone
+# seconds a recipe may take in the block: over four times the longest
+# recipe alone
 N5_TIMEOUT_S = 300.0
 
 
@@ -4627,37 +4657,85 @@ def spread_recipe(tag: str, device: str = "cuda") -> dict:
     return dict(launches=launches, seconds=seconds, line=line)
 
 
+# how ``envelope_recipe`` cuts scripts/envelope_seed_sweep.sh's run: whole
+# chunks of the driver (256 vector steps of the one env), the second
+# crossing ``start_steps`` 500, so the learner steps on the last 268
+ENVELOPE_SMOKE_CHUNKS = 3
+
+
+def envelope_recipe(tag: str, device: str = "cuda") -> dict:
+    """The run of ``golden.ENVELOPE_RUNS`` on ``device``, cut in depth: the
+    env and the algo the port's CLI builds from ``golden.envelope_argv`` (1
+    env, batch 256, a replay of 1e6, 128 preferences an update, epsilon 0.4
+    decaying over the 5,000 episodes), trained by ``train_offpolicy`` with
+    the recipe's settings for ``ENVELOPE_SMOKE_CHUNKS`` chunks, then the
+    100-preference sweep of scripts/torch_envelope_e2e.py on the state it
+    reached. The config must be the recipe's, the learner must have
+    stepped on every vector step past ``start_steps``, the record must be
+    finite, the sweep must give 100 finite returns and a precision, recall
+    and CR in [0, 1], and neither may launch the sum-tree kernel. Returns
+    the launches, the seconds and a line to log."""
+    from freerl_tpu_torch import cli
+    from freerl_tpu_torch.train import OffPolicyConfig, golden, train_offpolicy
+    from scripts import torch_envelope_e2e as e2e
+
+    _, _, episodes, num_envs, upb, _ = golden.ENVELOPE_RUNS[tag]
+    argv = golden.envelope_argv(0, tag=tag)
+    args = cli.parser().parse_args(argv + ["--device", device])
+    env, algo = cli.build(args)
+    want = dict(batch_size=256, buffer_size=1_000_000, weight_num=128,
+                epsilon=0.4, epsilon_decay=True, max_episodes=episodes)
+    got = {k: getattr(algo.cfg, k) for k in want}
+    if got != want or args.num_envs != num_envs:
+        raise AssertionError(f"{tag}: config {got}, expected {want}")
+    cfg = OffPolicyConfig(seed=args.seed, num_envs=num_envs,
+                          max_episodes=10**9, start_steps=args.start_steps,
+                          updates_per_burst=upb, host_sync_every=1)
+    steps = ENVELOPE_SMOKE_CHUNKS * cfg.chunk_size * num_envs
+    cfg = dataclasses.replace(cfg, max_env_steps=steps)
+    ws = e2e.preferences()
+
+    def run():
+        state, returns, info = train_offpolicy(env, algo, cfg)
+        return returns, info, e2e.rollout(algo, state, env, ws)
+
+    (returns, info, (rets, vecs)), launches, seconds = sumtree_count(
+        run, device)
+    m = e2e.metrics(ws, vecs)
+    if not (info["env_steps"] == steps
+            and info["updates"] == (steps - args.start_steps) * upb
+            and np.isfinite(np.asarray(returns)).all()):
+        raise AssertionError(f"{tag}: record {np.shape(returns)}, {info}")
+    if not (rets.shape == (100,) and vecs.shape == (100, env.reward_dim)
+            and np.isfinite(rets).all()
+            and all(0.0 <= m[k] <= 1.0 for k in ("precision", "recall",
+                                                   "CR"))):
+        raise AssertionError(f"{tag}: sweep {rets.shape}, finite "
+                             f"{np.isfinite(rets).all()}, {m}")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[envelope {tag}] {' '.join(argv)}: {ENVELOPE_SMOKE_CHUNKS} "
+            f"chunks, {info['env_steps']} env steps, {info['updates']} "
+            f"updates, {len(returns)} episodes; sweep of 100 preferences: "
+            f"mean {rets.mean():.2f}, precision {m['precision']:.2f}, "
+            f"recall {m['recall']:.2f}, CR {m['CR']:.2f}; sumtree launches "
+            f"{launches}, {seconds:.1f} s")
+    return dict(launches=launches, seconds=seconds, line=line)
+
+
+# each table of recipes, by the name of its launches, and the recipe of it
+RECIPE_TABLES = (("n5", "N5_RUNS", n5_recipe),
+                 ("spread", "SPREAD_RUNS", spread_recipe),
+                 ("envelope", "ENVELOPE_RUNS", envelope_recipe))
+
+
 def recipe(tag: str, device: str = "cuda") -> dict:
-    """``spread_recipe`` for a tag of ``golden.SPREAD_RUNS``, else
-    ``n5_recipe``."""
+    """The recipe of ``RECIPE_TABLES`` whose table holds ``tag``."""
     from freerl_tpu_torch.train import golden
 
-    fn = spread_recipe if tag in golden.SPREAD_RUNS else n5_recipe
+    fn = next(fn for _, table, fn in RECIPE_TABLES
+              if tag in getattr(golden, table))
     return fn(tag, device)
-
-
-def phase_recipes() -> dict:
-    """Every recipe of ``golden.N5_RUNS`` and of ``golden.SPREAD_RUNS`` at
-    once (``side_by_side``), each ``n5_recipe`` or ``spread_recipe`` in a
-    process of its own on the card. Logs each recipe's line; fails if one
-    failed or moved a global random state. Returns the sum-tree launches of
-    each table, by ``n5`` and ``spread``."""
-    from freerl_tpu_torch.train import golden
-
-    tags = list(golden.N5_RUNS) + list(golden.SPREAD_RUNS)
-    runs, wall = side_by_side(recipe, tags, timeout=N5_TIMEOUT_S)
-    for rec in runs.values():
-        log(rec["out"]["line"])
-    moved = {tag: rec["moved"] for tag, rec in runs.items() if rec["moved"]}
-    longest = max(rec["seconds"] for rec in runs.values())
-    log(f"[time] n5 and spread recipes: {wall:.1f} s for {len(runs)} "
-        f"recipes side by side, the longest {longest:.1f} s")
-    if moved:
-        raise AssertionError(f"recipes drew from the global random states: "
-                             f"{moved}")
-    return {name: sum(rec["out"]["launches"] for tag, rec in runs.items()
-                      if (tag in golden.SPREAD_RUNS) == (name == "spread"))
-            for name in ("n5", "spread")}
 
 
 def phase_determinism() -> None:
@@ -4756,17 +4834,16 @@ def main() -> int:
         "launches"]
     timed("card-vs-cpu slice 8 one-rank NCCL", phase_nccl_one_rank)
     timed("golden", phase_golden)
-    learning = timed("learning checks", phase_learning_block)
-    kernel["launches_onpolicy"] += learning["onpolicy"]
-    kernel["launches_marl"] += learning["marl"]
+    block = timed("learning checks and recipes", phase_learning_block)
+    kernel["launches_onpolicy"] += block["onpolicy"]
+    kernel["launches_marl"] += block["marl"]
+    for name, _, _ in RECIPE_TABLES:
+        kernel[f"launches_{name}"] = block[name]
     kernel["launches_bench"] = timed("bench", phase_bench)
     kernel["launches_per_bench"] = timed("per bench", phase_per_bench)
     kernel["launches_northstar"] = timed("northstar", phase_northstar)
     timed("golden vs jax", phase_golden_vs_jax)
     timed("fixed-reset starts", phase_fixed_reset_starts)
-    recipes = timed("n5 and spread recipes", phase_recipes)
-    kernel["launches_n5"], kernel["launches_spread"] = (recipes["n5"],
-                                                        recipes["spread"])
     timed("determinism", phase_determinism)
     left = stop_children()
     if left:

@@ -7,11 +7,14 @@ the JAX curves each row names.
         [--results_root results/torch] [--log_dir build/golden_card]
 
 The jobs: the north-star point (``scripts/torch_northstar.py`` at
-``--northstar``, seed 0) and, for each ROW of ``golden.JAX_PARITY`` (a
-``golden.row_key``: ``ENV/STEM``, or ``ENV/STEM@jax_head``), one run of
-the row's recipe per seed through the port's CLI (``golden.regen_argv``,
-as ``golden.regenerate`` runs it); ``--seeds`` runs only those of a row's
-seeds, so a long row can be spread over several calls. A seed whose raw
+``--northstar``, seed 0) and, for each ROW of ``golden.JAX_PARITY`` or
+``golden.RUN_ONLY`` (a ``golden.row_key``: ``ENV/STEM``, or
+``ENV/STEM@jax_head``), one run of the row's recipe per seed through the
+port's CLI (``golden.regen_argv``, as ``golden.regenerate`` runs it; a row
+that sweeps its runs, ``then_sweep``, through ``SWEEP_RUNNER``, one job a
+seed for every row of its recipe); ``--seeds`` runs only those of a row's
+seeds, in the order given (a queue longest first), so a long row can be
+spread over several calls. A seed whose raw
 curve is kept under ``golden.OURS_ROOT`` (``golden.kept_seed``: its file is
 there and its provenance says it ran the row's recipe, from the start the
 port pins now where the recipe takes ``--fixed_reset``) is not run again,
@@ -73,13 +76,13 @@ NORTHSTAR = "LunarLander-v2/DQN_fast_1_seed"
 # off-policy run dir's checkpoint holds its whole replay ring
 PROBE_RUNS_ROOT = os.path.join(ROOT, "results", "torch", "golden_runs",
                                "probe")
+# how a seed of a ``then_sweep`` row runs: the port's CLI, then the sweep of
+# its run dir, in one process
+SWEEP_RUNNER = ["-m", "scripts.torch_envelope_e2e", "--and_sweep"]
 
 
 def parity_row(key: str) -> golden.GoldenSpec:
-    for spec in golden.JAX_PARITY:
-        if golden.row_key(spec) == key:
-            return spec
-    raise KeyError(f"{key!r} is not a row of golden.JAX_PARITY")
+    return golden.recipe_row(key)
 
 
 def make_jobs(northstar, keys, total_steps, device, results_root,
@@ -87,7 +90,8 @@ def make_jobs(northstar, keys, total_steps, device, results_root,
     """One dict per process: its name, argv, and the row it feeds, one
     per seed file (rows of one recipe share their seeds' files). With
     ``reuse``, no job for a seed of the row's recipe that is kept
-    (``golden.kept_seed``); with ``seeds``, none for a seed not in it."""
+    (``golden.kept_seed``); with ``seeds``, none for a seed not in it, and
+    the row's jobs in its order (a queue longest first)."""
     jobs, made = [], set()
     if northstar:
         jobs.append(dict(
@@ -98,24 +102,31 @@ def make_jobs(northstar, keys, total_steps, device, results_root,
                 "--seed", "0", "--device", device,
                 "--out", os.path.join(results_root, "northstar.json"),
                 "--curves_root", golden.OURS_ROOT]))
+    swept = {}
     for key in keys:
         spec = parity_row(key)
         if not spec.regen:
             raise ValueError(f"{key} has no recipe: the north star runs "
                              f"through --northstar")
-        for seed in spec.regen_seeds:
-            if seeds is not None and seed not in seeds:
-                continue
+        for seed in (spec.regen_seeds if seeds is None else
+                     [s for s in seeds if s in spec.regen_seeds]):
             path = golden.seed_file(golden.OURS_ROOT, spec, seed)
             if path in made or (reuse and golden.kept_seed(
                     golden.OURS_ROOT, spec, seed)):
                 continue
             made.add(path)
+            argv = golden.regen_argv(spec, seed, results_root, device)
+            sweep = getattr(spec, "then_sweep", False)
+            # the rows of a swept recipe share each seed's run
+            if sweep and tuple(argv) in swept:
+                swept[tuple(argv)]["also"].append(key)
+                continue
+            runner = SWEEP_RUNNER if sweep else ["-m", "freerl_tpu_torch.cli"]
             jobs.append(dict(
                 name=f"{spec.env}_{spec.algo}_seed_{seed}", row=key,
-                seed=seed, argv=[sys.executable, "-m", "freerl_tpu_torch.cli",
-                                 *golden.regen_argv(spec, seed, results_root,
-                                                    device)]))
+                also=[], seed=seed, argv=[sys.executable, *runner, *argv]))
+            if sweep:
+                swept[tuple(argv)] = jobs[-1]
     return jobs
 
 
@@ -206,26 +217,32 @@ def keep_seeds(jobs: list, log_dir: str) -> None:
     for j in jobs:
         if "seed" not in j or j.get("rc") != 0:
             continue
-        spec = parity_row(j["row"])
         with open(j["log"]) as f:
             info = golden.parse_run_log(f.read())
         run_dir = info.pop("run_dir")
-        curve = golden.seed_curve(spec, run_dir, j["seed"])
-        kept = golden.seed_file(golden.OURS_ROOT, spec, j["seed"])
-        pinned = golden.pinned_start(spec, j["seed"])
-        start = {} if pinned is None else dict(start=pinned)
-        os.makedirs(os.path.dirname(kept), exist_ok=True)
-        np.save(kept, curve)
-        prov = golden.update_provenance(golden.OURS_ROOT, spec.env, seeds={
-            os.path.basename(kept): dict(
-                command=shlex.join(["python", *[
-                    os.path.relpath(a, ROOT) if a.startswith(ROOT) else a
-                    for a in j["argv"][1:]]]),
-                card=None if j["card"] is None else card_line(),
-                seconds=j["seconds"], **info, **start,
-                final50=round(float(curve[-50:].mean()), 4))})
-        for path in (kept, prov):
-            _keep(path, log_dir)
+        summary = os.path.join(run_dir, "sweep_summary.json")
+        if os.path.isfile(summary):
+            with open(summary) as f:
+                info["sweep"] = json.load(f)
+        for key in [j["row"], *j.get("also", [])]:
+            spec = parity_row(key)
+            curve = golden.seed_curve(spec, run_dir, j["seed"])
+            kept = golden.seed_file(golden.OURS_ROOT, spec, j["seed"])
+            pinned = golden.pinned_start(spec, j["seed"])
+            start = {} if pinned is None else dict(start=pinned)
+            os.makedirs(os.path.dirname(kept), exist_ok=True)
+            np.save(kept, curve)
+            prov = golden.update_provenance(
+                golden.OURS_ROOT, spec.env, seeds={
+                    os.path.basename(kept): dict(
+                        command=shlex.join(["python", *[
+                            os.path.relpath(a, ROOT) if a.startswith(ROOT)
+                            else a for a in j["argv"][1:]]]),
+                        card=None if j["card"] is None else card_line(),
+                        seconds=j["seconds"], **info, **start,
+                        final50=round(float(curve[-50:].mean()), 4))})
+            for path in (kept, prov):
+                _keep(path, log_dir)
 
 
 def stack_rows(keys: list, jobs: list, log_dir: str) -> None:
@@ -236,7 +253,8 @@ def stack_rows(keys: list, jobs: list, log_dir: str) -> None:
         spec = parity_row(key)
         paths = [golden.seed_file(golden.OURS_ROOT, spec, seed)
                  for seed in spec.regen_seeds]
-        if (any(j.get("rc") != 0 for j in jobs if j["row"] == key)
+        if (any(j.get("rc") != 0 for j in jobs
+                if key in (j["row"], *j.get("also", [])))
                 or not all(golden.kept_seed(golden.OURS_ROOT, spec, seed)
                            for seed in spec.regen_seeds)):
             print(f"[stack] {key}: not every seed finished; not stacked",
@@ -294,12 +312,14 @@ def probe_record(job: dict, runs: dict) -> dict:
 
 
 def probe(tags, episodes: int, argv, argv_of, runs: dict,
-          log_dir: str) -> int:
+          log_dir: str, project=None) -> int:
     """A shim's ``--probe EPISODES``: seed 0 of each tag of ``runs`` (the
     shim's table, its argv ``argv_of``) for ``episodes`` episodes, with the
     options in ``argv`` (``--per_card``, ``--device``, ``--deadline``,
     ``--log_dir``, by default ``log_dir``, and ``--runs_root``, by default
-    ``PROBE_RUNS_ROOT``). Prints a record a tag and the card's line."""
+    ``PROBE_RUNS_ROOT``). Prints a record a tag (with ``project(record)``
+    under ``projections`` where the shim gives it and the tag's run ended
+    well) and the card's line."""
     pa = argparse.ArgumentParser()
     pa.add_argument("--per_card", type=int, default=1)
     pa.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -316,7 +336,10 @@ def probe(tags, episodes: int, argv, argv_of, runs: dict,
     finally:
         left = stop_children()
     for j in jobs:
-        print(json.dumps(probe_record(j, runs)), flush=True)
+        rec = probe_record(j, runs)
+        if project is not None and rec["rc"] == 0:
+            rec["projections"] = project(rec)
+        print(json.dumps(rec), flush=True)
     print(json.dumps({"per_card": p.per_card, "device": p.device,
                       "card": card_line() if p.device == "cuda" else None,
                       "left_running": left}), flush=True)
@@ -326,7 +349,8 @@ def probe(tags, episodes: int, argv, argv_of, runs: dict,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("rows", nargs="*",
-                    help="rows of golden.JAX_PARITY with a recipe, by "
+                    help="rows of golden.JAX_PARITY or RUN_ONLY with a "
+                         "recipe, by "
                          "golden.row_key (ENV/STEM[@REF])")
     ap.add_argument("--northstar", default=None,
                     help="the north-star point NUM_ENVSxUPB, e.g. 4096x8")
@@ -336,7 +360,8 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true",
                     help="run seeds again whose curve is kept already")
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
-                    help="run only these seeds of each row (default: all)")
+                    help="run only these seeds of each row, in this "
+                         "order (default: all)")
     ap.add_argument("--total_steps", type=int, default=150_000_000)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--deadline", type=float, default=None,

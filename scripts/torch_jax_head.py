@@ -5,7 +5,11 @@ JAX code for the port's parity rows held against ``jax_head``.
         [--out results/torch/jax_head] [--work build/jax_head] [--force]
 
 Each argument is a key (``golden.row_key``) of a row of
-``golden.JAX_PARITY`` whose reference is ``jax_head``. For each seed of the
+``golden.JAX_PARITY`` or ``golden.RUN_ONLY`` whose reference is
+``jax_head``; a row that sweeps its runs (``then_sweep``) runs
+``scripts/envelope_e2e.sweep(run_dir, None)`` on each seed's run dir after
+its CLI command, in the same slot (never the JAX script's ``main()``), and
+records both as one chained command. For each seed of the
 row's recipe the JAX package's own CLI runs as a command,
 ``python -m freerl_tpu.cli <recipe> --results_root <work>/<env>
 --no_tensorboard``, with ``JAX_PLATFORMS=cpu``, ``--jobs`` commands at once.
@@ -46,12 +50,10 @@ from freerl_tpu_torch.train import golden  # noqa: E402
 
 
 def head_row(key: str) -> golden.ParityRow:
-    for row in golden.JAX_PARITY:
-        if golden.row_key(row) == key:
-            if getattr(row, "ref", None) != "jax_head" or not row.regen:
-                raise ValueError(f"{key}: not a jax_head row with a recipe")
-            return row
-    raise KeyError(f"{key!r} is not a row of golden.JAX_PARITY")
+    row = golden.recipe_row(key)
+    if getattr(row, "ref", None) != "jax_head" or not row.regen:
+        raise ValueError(f"{key}: not a jax_head row with a recipe")
+    return row
 
 
 def jax_argv(row: golden.ParityRow, seed: int, work: str) -> list:
@@ -60,6 +62,19 @@ def jax_argv(row: golden.ParityRow, seed: int, work: str) -> list:
             *[a.format(seed=seed) for a in row.regen],
             "--results_root", os.path.join(work, row.env, f"seed_{seed}"),
             "--no_tensorboard"]
+
+
+# scripts/envelope_e2e.py's sweep of one run dir, as
+# scripts/envelope_seed_sweep.sh runs it after each seed's training (never
+# the script's main(), whose curves go into results/learning_curves/)
+SWEEP_CODE = ("import sys; sys.path.insert(0, '.'); "
+              "from scripts.envelope_e2e import sweep; "
+              "sweep(sys.argv[1], None)")
+
+
+def sweep_argv(run_dir: str) -> list:
+    """The command that sweeps one JAX run dir (``SWEEP_CODE``)."""
+    return [sys.executable, "-c", SWEEP_CODE, run_dir]
 
 
 def _git(*args) -> str | None:
@@ -125,8 +140,11 @@ def jax_starts(tasks: list) -> dict:
 
 
 def run_seeds(tasks: list, n_jobs: int, log_dir: str) -> list:
-    """Run ``(row, seed, argv)`` tasks, ``n_jobs`` at once; returns one
-    record per task (``rc``, ``seconds``, ``log``)."""
+    """Run ``(row, seed, argv)`` tasks, ``n_jobs`` at once; a task of a
+    ``then_sweep`` row sweeps its run dir (``sweep_argv``) in the same slot
+    once its training ends well, into the same log. Returns one record per
+    task (``rc``, ``seconds``, ``log``, and ``sweep``, the sweep's command,
+    where one ran)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     pending, running, done = list(tasks), [], []
     while pending or running:
@@ -136,21 +154,40 @@ def run_seeds(tasks: list, n_jobs: int, log_dir: str) -> list:
             f = open(log, "w")
             proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=f,
                                     stderr=subprocess.STDOUT)
-            running.append((row, seed, argv, proc, f, log, time.time()))
+            rec = dict(row=row, seed=seed, argv=argv, log=log)
+            running.append((rec, proc, f, time.time()))
             print(f"[start] {row.env} {row.algo} seed {seed}", flush=True)
         for item in list(running):
-            row, seed, argv, proc, f, log, t0 = item
+            rec, proc, f, t0 = item
             if proc.poll() is None:
                 continue
             f.close()
             running.remove(item)
-            rec = dict(row=row, seed=seed, argv=argv, rc=proc.returncode,
-                       seconds=round(time.time() - t0, 1), log=log)
+            if (proc.returncode == 0 and rec["row"].then_sweep
+                    and "sweep" not in rec):
+                with open(rec["log"]) as lf:
+                    run_dir = golden.parse_run_log(lf.read())["run_dir"]
+                rec["sweep"] = sweep_argv(run_dir)
+                f = open(rec["log"], "a")
+                running.append((rec, subprocess.Popen(
+                    rec["sweep"], cwd=ROOT, env=env, stdout=f,
+                    stderr=subprocess.STDOUT), f, t0))
+                continue
+            rec.update(rc=proc.returncode, seconds=round(time.time() - t0, 1))
             done.append(rec)
-            print(f"[end] {row.env} {row.algo} seed {seed}: rc {rec['rc']} "
-                  f"in {rec['seconds']} s", flush=True)
+            print(f"[end] {rec['row'].env} {rec['row'].algo} seed "
+                  f"{rec['seed']}: rc {rec['rc']} in {rec['seconds']} s",
+                  flush=True)
         time.sleep(1.0)
     return done
+
+
+def _command(argv: list) -> str:
+    """A recorded command: ``argv`` with the interpreter as ``python`` and
+    paths under the repo relative to it."""
+    return shlex.join(["python", *[os.path.relpath(a, ROOT)
+                                   if a.startswith(ROOT) else a
+                                   for a in argv[1:]]])
 
 
 def main(argv=None) -> int:
@@ -168,7 +205,7 @@ def main(argv=None) -> int:
     os.makedirs(args.work, exist_ok=True)
     starts = jax_starts([(row, seed) for row in rows
                          for seed in row.regen_seeds])
-    tasks, seen = [], set()
+    tasks, seen, shared = [], set(), {}
     for row in rows:
         for seed in row.regen_seeds:
             path = golden.seed_file(args.out, row, seed)
@@ -177,38 +214,46 @@ def main(argv=None) -> int:
                     args.out, row, seed, start)):
                 continue
             seen.add(path)
-            tasks.append((row, seed, jax_argv(row, seed, args.work)))
+            argv = jax_argv(row, seed, args.work)
+            # rows of one recipe that is swept share each seed's run
+            if row.then_sweep and tuple(argv) in shared:
+                shared[tuple(argv)].append(row)
+                continue
+            shared[tuple(argv)] = [row]
+            tasks.append((row, seed, argv))
     commit = _git("rev-parse", "HEAD")
     clean = _git("status", "--porcelain", "--", "freerl_tpu") == ""
     version = jax_version()
     records = run_seeds(tasks, args.jobs, args.work)
     failed = []
     for rec in records:
-        row, seed = rec["row"], rec["seed"]
+        seed = rec["seed"]
         if rec["rc"] != 0:
-            failed.append(f"{golden.row_key(row)}:{seed}")
+            failed.append(f"{golden.row_key(rec['row'])}:{seed}")
             continue
         with open(rec["log"]) as f:
             info = golden.parse_run_log(f.read())
-        algo = row.regen[row.regen.index("--algo") + 1]
-        curve = np.load(os.path.join(info["run_dir"],
-                                     f"{algo}_seed_{seed}.npy"))
-        path = golden.seed_file(args.out, row, seed)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        np.save(path, curve)
-        golden.update_provenance(args.out, row.env, seeds={
-            os.path.basename(path): dict(
-                command="JAX_PLATFORMS=cpu " + shlex.join(
-                    ["python", *[os.path.relpath(a, ROOT)
-                                 if a.startswith(ROOT) else a
-                                 for a in rec["argv"][1:]]]),
-                commit=commit, freerl_tpu_clean=clean, jax=version,
-                device="cpu", seconds=rec["seconds"],
-                env_steps=info["env_steps"], episodes=info["episodes"],
-                steps_per_s=info["steps_per_s"],
-                final50=round(float(curve[-50:].mean()), 4),
-                **({} if (golden.row_key(row), seed) not in starts else
-                   {"start": starts[(golden.row_key(row), seed)]}))})
+        command = "JAX_PLATFORMS=cpu " + _command(rec["argv"])
+        swept = {}
+        if "sweep" in rec:
+            command += " && " + _command(rec["sweep"])
+            with open(os.path.join(info["run_dir"],
+                                   "sweep_summary.json")) as f:
+                swept = dict(sweep=json.load(f))
+        for row in shared[tuple(rec["argv"])]:
+            curve = golden.seed_curve(row, info["run_dir"], seed)
+            path = golden.seed_file(args.out, row, seed)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.save(path, curve)
+            golden.update_provenance(args.out, row.env, seeds={
+                os.path.basename(path): dict(
+                    command=command, commit=commit, freerl_tpu_clean=clean,
+                    jax=version, device="cpu", seconds=rec["seconds"],
+                    env_steps=info["env_steps"], episodes=info["episodes"],
+                    steps_per_s=info["steps_per_s"],
+                    final50=round(float(curve[-50:].mean()), 4), **swept,
+                    **({} if (golden.row_key(row), seed) not in starts else
+                       {"start": starts[(golden.row_key(row), seed)]}))})
     for row in rows:
         if not all(golden.kept_seed(args.out, row, s, starts.get(
                 (golden.row_key(row), s))) for s in row.regen_seeds):

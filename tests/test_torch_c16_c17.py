@@ -7,8 +7,11 @@ adds that the counts of solved seeds (final-50 >= 50) must not differ,
 Fisher's exact p >= 0.05. C17 met its rule over 16 seeds and C18 over 16:
 their 3-seed rows keep their gates and read FAIL, each where its rule put
 it (``test_rows_are_held_as_their_rules_decided``, the one table of where
-these rows are held). C16's 16- and 48-seed rows fail (a): C16 stays open,
-both rows with it in ``golden.OPEN_FAULTS``."""
+these rows are held). C16's 16- and 48-seed rows fail (a), so C16 stayed
+open; after its ObsNorm path held to the JAX package's step by step
+(``tests/test_torch_c16_lockstep.py``), its rule over 96 seeds a side
+closed it: its 3-, 16- and 48-seed rows keep their gates and read FAIL in
+``golden.UNDERPOWERED``, naming the 96-seed row."""
 import json
 import os
 
@@ -25,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = "MountainCarContinuous-v0"
 MPE = "simple_spread_v3"
 C16_48 = f"{ENV}/PPO_ObsNorm_48_seed@jax_head"
+C16_96 = f"{ENV}/PPO_ObsNorm_96_seed@jax_head"
 C17 = f"{ENV}/DDPG_OUNoise_16_seed@jax_head"
 C18 = f"{MPE}/MAAC_N5_16_seed@jax_head"
 GATE = ("window", "slack", "agg", "slack_mode", "overlap_gate", "floor",
@@ -44,10 +48,12 @@ def _row(key: str):
                  id="DDPG_OUNoise"),
     pytest.param(ENV, "PPO_ObsNorm", golden.DQN_LL_SEEDS48,
                  id="PPO_ObsNorm_48"),
+    pytest.param(ENV, "PPO_ObsNorm", golden.DQN_LL_SEEDS96,
+                 id="PPO_ObsNorm_96"),
     pytest.param(MPE, "MAAC_N5", golden.DQN_LL_SEEDS16, id="MAAC_N5")])
 def test_16_seed_rows_take_the_3_seed_rows_recipe_and_gate(env, label,
                                                             seeds):
-    """Each row over more seeds (16, or C16's 48) is its 3-seed
+    """Each row over more seeds (16, or C16's 48 and 96) is its 3-seed
     ``@jax_head`` row's recipe and gate over the rule's seeds, and its
     seeds 0, 10 and 100 are the 3-seed row's, kept once; every seed of it
     ran on the card with no sum-tree launch and on the CPU with the JAX
@@ -85,7 +91,7 @@ def test_c17_rows_are_underpowered_by_the_rule_for_seeds():
 
 def test_c16_stays_open_with_its_16_seed_row():
     """C16 over 16 seeds: the row misses its mean gate (rule (a)), whatever
-    its Mann-Whitney p; so C16 stayed open."""
+    its Mann-Whitney p; so C16 stayed open then."""
     got = golden.check_against_jax(
         _row(f"{ENV}/PPO_ObsNorm_16_seed@jax_head"))
     assert got["status"] == "FAIL"
@@ -95,7 +101,8 @@ def test_c16_stays_open_with_its_16_seed_row():
 def test_c16_stays_open_by_its_rule():
     """C16 over 48 seeds a side: the port's mean final-50 misses the row's
     gate (36 of 48 seeds solve against 39 of 48), so rule (a) fails
-    whatever rule (b) reads (Mann-Whitney p 0.744, Fisher's p 0.622)."""
+    whatever rule (b) reads (Mann-Whitney p 0.744, Fisher's p 0.622): C16
+    stayed open then."""
     got = golden.check_against_jax(_row(C16_48))
     assert got["status"] == "FAIL"
     assert got["ours"] < got["ref"] - got["slack"]
@@ -104,6 +111,23 @@ def test_c16_stays_open_by_its_rule():
     solved = [len(sides[k]["seeds"]) - sides[k]["below"]
               for k in ("port", "jax_head")]
     assert solved == [36, 39]
+    assert sides["mannwhitney"]["final50"]["p"] >= spread.P_MIN
+    assert sides["fisher_below"]["p"] >= spread.P_MIN
+
+
+def test_c16_closes_by_its_rule_over_96_seeds():
+    """C16 over 96 seeds a side, the rule fixed once every step of the
+    port's ObsNorm path held: the row passes its gate (the port's mean
+    final-50 70.75 against JAX's 74.94, slack 5; 73 against 77 seeds
+    solve) (a), and neither the final-50s nor the solved counts differ,
+    Mann-Whitney p 0.465, Fisher's p 0.601 (b)."""
+    got = golden.check_against_jax(_row(C16_96))
+    assert got["status"] == "pass"
+    sides = spread.spread(golden.OURS_ROOT, golden.JAX_HEAD_ROOT, ENV,
+                          "PPO_ObsNorm_96_seed", below=SOLVED)
+    solved = [len(sides[k]["seeds"]) - sides[k]["below"]
+              for k in ("port", "jax_head")]
+    assert solved == [73, 77]
     assert sides["mannwhitney"]["final50"]["p"] >= spread.P_MIN
     assert sides["fisher_below"]["p"] >= spread.P_MIN
 
@@ -128,10 +152,11 @@ def test_c18_closes_by_its_rule(monkeypatch):
 
 
 @pytest.mark.parametrize("key,held,value", [
-    (f"{ENV}/PPO_ObsNorm_3_seed", "OPEN_FAULTS", "C16"),
-    (f"{ENV}/PPO_ObsNorm_3_seed@jax_head", "OPEN_FAULTS", "C16"),
-    (f"{ENV}/PPO_ObsNorm_16_seed@jax_head", "OPEN_FAULTS", "C16"),
-    (C16_48, "OPEN_FAULTS", "C16"),
+    (f"{ENV}/PPO_ObsNorm_3_seed", "UNDERPOWERED", C16_96),
+    (f"{ENV}/PPO_ObsNorm_3_seed@jax_head", "UNDERPOWERED", C16_96),
+    (f"{ENV}/PPO_ObsNorm_16_seed@jax_head", "UNDERPOWERED", C16_96),
+    (C16_48, "UNDERPOWERED", C16_96),
+    (C16_96, None, None),
     (f"{ENV}/DDPG_OUNoise_3_seed", "UNDERPOWERED", C17),
     (f"{ENV}/DDPG_OUNoise_3_seed@jax_head", "UNDERPOWERED", C17),
     (C17, None, None),

@@ -47,3 +47,35 @@ def test_moved_rngs_names_the_states_a_draw_moves():
     np.random.rand()
     assert chip_smoke.moved_rngs(before, chip_smoke.global_rng_states()) \
         == ["torch", "numpy"]
+
+
+def test_the_block_runs_the_checks_and_the_recipes(monkeypatch):
+    """``phase_learning_block`` runs every learning check and every recipe
+    of ``RECIPE_TABLES`` in one block (``block_task`` sends each name to
+    ``phase_learning`` or ``recipe``), sums the sum-tree launches by the
+    checks' drivers and the recipes' tables, and fails on a recipe over
+    ``N5_TIMEOUT_S`` or a moved random state, naming it."""
+    from freerl_tpu_torch.train import golden
+
+    monkeypatch.setattr(chip_smoke, "phase_learning",
+                        lambda name: dict(line=f"check {name}", launches=1))
+    monkeypatch.setattr(chip_smoke, "recipe",
+                        lambda tag: dict(line=f"recipe {tag}", launches=2))
+    seconds = {}
+
+    def in_process(fn, names, args=(), timeout=None):
+        return {n: dict(out=fn(n, *args), seconds=seconds.get(n, 1.0),
+                        moved=[]) for n in names}, 3.0
+
+    monkeypatch.setattr(chip_smoke, "side_by_side", in_process)
+    got = chip_smoke.phase_learning_block()
+    tables = {name: len(getattr(golden, table))
+              for name, table, _ in chip_smoke.RECIPE_TABLES}
+    assert tables == {"n5": len(golden.N5_RUNS), "spread": 1, "envelope": 1}
+    drivers = [c.get("driver") for c in chip_smoke.LEARNING_CHECKS.values()]
+    assert got == {"onpolicy": drivers.count("onpolicy"),
+                   "marl": drivers.count("marl"),
+                   **{name: 2 * n for name, n in tables.items()}}
+    seconds["ENVELOPE"] = chip_smoke.N5_TIMEOUT_S + 1
+    with pytest.raises(AssertionError, match="ENVELOPE"):
+        chip_smoke.phase_learning_block()

@@ -196,9 +196,11 @@ def test_cpu_run_stacks_raw(tmp_path, monkeypatch, capsys):
 def test_gate_rows_are_dataclass_copies():
     """``parity_row`` keeps every field of the spec it copies."""
     row = golden.parity_row(golden.SPECS[0], ref="jax_head")
-    assert dataclasses.astuple(row)[:-3] == dataclasses.astuple(
+    n = len(dataclasses.fields(golden.GoldenSpec))
+    assert dataclasses.astuple(row)[:n] == dataclasses.astuple(
         golden.SPECS[0])
-    assert (row.ref, row.smooth, row.bins) == ("jax_head", True, 0)
+    assert (row.ref, row.smooth, row.bins, row.then_sweep,
+            row.curve_file) == ("jax_head", True, 0, False, "")
 
 
 def test_fixed_reset_starts_are_each_packages_own_draw():
