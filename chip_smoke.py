@@ -40,12 +40,14 @@ Phases (any failure raises, and the script exits non-zero):
     envs, 256 vector steps; discrete DDPG (softmax and Gumbel actors) and
     discrete SAC on CartPole-v1; ``train_her`` with DDPG on
     GoalPendulum-v1; none of them launches the sum-tree kernel;
-11. the on-policy slice on the card against the CPU: ``gae`` on a
+11. (in the block of 24) the on-policy slice on the card against the
+    CPU: ``gae`` on a
     64 x 1024 rollout, one full update at full width (2x128) of each PPO
     branch (Gaussian, discrete, Beta, all tricks, ``recompute_logp``,
     ``std_decay``), one REINFORCE update, and 100 teacher-forced
     auto-resetting BipedalWalker steps at 256 envs;
-12. train_onpolicy at 1024 envs for 2 iterations: PPO (its defaults,
+12. (in the block of 24) train_onpolicy at 1024 envs for 2 iterations:
+    PPO (its defaults,
     2x128, T 16) on BipedalWalker-v3, PPO with reward_scaling on
     CartPole-v1 (T 16), REINFORCE on CartPole-v1 (T 64);
     the episode record must equal the RAW rewards' sums, REINFORCE must
@@ -65,7 +67,8 @@ Phases (any failure raises, and the script exits non-zero):
     scenario's ranges, the learner must step once per vector step, and
     none of them launches the sum-tree kernel; each path's kernels per
     vector step are profiled;
-15. the multi-agent on-policy slice on the card against the CPU, at full
+15. (in the block of 24) the multi-agent on-policy slice on the card
+    against the CPU, at full
     width from identical params and draws: one ``sample_action`` and one
     full update of MAPPO (stacked, all 12 tricks, the attention critic,
     masked, world comm), IPPO on simple_adversary_v3, HAPPO, MAT
@@ -74,7 +77,8 @@ Phases (any failure raises, and the script exits non-zero):
     rollout, every Adam step held against the CPU's, free-running for
     the variant's first ``FREE_STEPS`` steps and from the CPU's state
     after that;
-16. train_onpolicy with the configs' defaults (2x128; MAT n_embd 64;
+16. (in the block of 24) train_onpolicy with the configs' defaults
+    (2x128; MAT n_embd 64;
     rMAPPO GRU 64) but ``num_envs`` and ``horizon``: MAPPO on
     simple_spread_v3 (1024 envs, T 4, 7 iterations), IPPO on
     simple_adversary_v3, HAPPO and MAT on spread and MAPPO on
@@ -146,7 +150,9 @@ Phases (any failure raises, and the script exits non-zero):
     into a temporary directory;
 24. the learning checks of ``LEARNING_CHECKS`` (DQN on CartPole-v1, SAC
     on Pendulum-v1, PPO on CartPole-v1, MATD3 and MAPPO on
-    simple_spread_v3), seed 0, side by side with the recipes of 30: each
+    simple_spread_v3), seed 0, side by side with the recipes of 30 and
+    the phases 11, 12, 15 and 16 (``BLOCK_PHASES``, moved here from their
+    places in the order): each
     in a spawned process of its own on the card (``side_by_side``), all
     joined before the next phase; the mean return of the last episodes
     must clear each check's threshold, a check that fails or outlives
@@ -172,7 +178,9 @@ Phases (any failure raises, and the script exits non-zero):
     of ``golden.OPEN_FAULTS`` or a stale reference of
     ``golden.STALE_REFERENCES``, or where the gate, not the port, misses
     (``golden.UNDERPOWERED``), and such a row must fail; an
-    absent curve fails the phase;
+    absent curve fails the phase; the scalar gates of
+    ``golden.SCALAR_GATES`` (the GAIL imitation gate, on the port's newest
+    ``results/torch/gail`` summary) are held the same way;
 29. the fixed-reset starts: for every env and seed of a ``--fixed_reset``
     row of ``golden.JAX_PARITY``, the env built as the CLI builds it on the
     card and on the CPU pins one start (the JAX package's draw, made on the
@@ -194,7 +202,15 @@ Phases (any failure raises, and the script exits non-zero):
     ``(episodes, n_agents)``, a learner step, the observations of the env
     at each agent's width, ``golden.bin_curve`` of the MASAC record, 100
     finite sweep returns with precision, recall and CR in [0, 1], no
-    sum-tree launch;
+    sum-tree launch; scripts/pixel_curve.py's run (``golden.PIXEL_RUNS``:
+    a replay of 1e5, batch 64, the small conv trunk, 8 envs, 4 updates a
+    vector step) through ``scripts/torch_pixel_curve.train`` for 2 chunks
+    (``pixel_recipe``): returns in [1, 500] and the learner stepping on
+    every vector step past the 1,000 start steps; and scripts/gail_e2e.py's
+    four stages (``golden.GAIL_RUNS``) through
+    ``scripts/torch_gail_e2e.run`` with 8 expert episodes and 2 GAIL
+    iterations (``gail_recipe``): the artifact set whole, finite, and read
+    by ``golden.check_scalar``; neither launches the sum-tree kernel;
 31. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
     after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
@@ -224,8 +240,8 @@ Phases (any failure raises, and the script exits non-zero):
 33. print one JSON line describing each kernel (with its launches on the
     main path, and on the Rainbow, continuous, on-policy, multi-agent
     on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
-    per-bench, north-star, N=5 recipe, spread recipe and envelope recipe
-    paths), the card
+    per-bench, north-star, N=5 recipe, spread recipe, envelope recipe,
+    pixel recipe and GAIL recipe paths), the card
     line, and the result line.
 
 It needs no network, builds everything from the checkout, and leaves no
@@ -3630,36 +3646,67 @@ def side_by_side(fn, names, args: tuple = (),
         return out, time.time() - t0
 
 
+# phases of the serial order that run in the learning block instead, each
+# in a process of its own, under their ``[time]`` names: none draws from a
+# global random state (``side_by_side`` refuses a child that does) or hands
+# a later phase anything but its sum-tree launches. name -> (the phase, its
+# arguments, the count of ``phase_learning_block``'s launches its own join,
+# or None where it returns none)
+BLOCK_PHASES = {
+    "card-vs-cpu onpolicy": (phase_card_vs_cpu_onpolicy, (), None),
+    "onpolicy": (phase_onpolicy, (), "onpolicy"),
+    "card-vs-cpu marl onpolicy": (phase_card_vs_cpu_marl_onpolicy, (), None),
+    **{f"marl onpolicy {label}": (phase_marl_onpolicy, (label,), "onpolicy")
+       for label in MARL_ONPOLICY_PATHS},
+}
+
+
+def block_phase(name: str) -> dict:
+    """The phase ``name`` of ``BLOCK_PHASES``, unchanged: its sum-tree
+    launches (0 where it returns none) and a line to log."""
+    fn, args, _ = BLOCK_PHASES[name]
+    t0 = time.time()
+    out = fn(*args)
+    launches = out["launches"] if isinstance(out, dict) else out or 0
+    return dict(launches=launches, line=f"[phase {name}] passed in "
+                f"{time.time() - t0:.1f} s, sumtree launches {launches}")
+
+
 def block_task(name: str) -> dict:
     """One process of ``phase_learning_block``: the learning check
-    ``name`` of ``LEARNING_CHECKS``, else the recipe ``name``."""
-    return phase_learning(name) if name in LEARNING_CHECKS else recipe(name)
+    ``name`` of ``LEARNING_CHECKS``, the phase ``name`` of
+    ``BLOCK_PHASES``, else the recipe ``name``."""
+    if name in LEARNING_CHECKS:
+        return phase_learning(name)
+    return block_phase(name) if name in BLOCK_PHASES else recipe(name)
 
 
 def phase_learning_block() -> dict:
-    """Every check of ``LEARNING_CHECKS`` and every recipe of
-    ``RECIPE_TABLES`` at once (``side_by_side``), each ``phase_learning``
-    or ``recipe`` unchanged in a process of its own on the card. Logs each
-    line and seconds; fails if one failed, a recipe took more than
-    ``N5_TIMEOUT_S``, or one moved a global random state (the phases after
-    the block then get the states a serial run would have left them).
-    Returns the sum-tree launches of the on-policy and of the multi-agent
-    checks ("onpolicy", "marl") and of each table of recipes (its name in
-    ``RECIPE_TABLES``)."""
+    """Every check of ``LEARNING_CHECKS``, every phase of ``BLOCK_PHASES``
+    and every recipe of ``RECIPE_TABLES`` at once (``side_by_side``), each
+    ``phase_learning``, phase or ``recipe`` unchanged in a process of its
+    own on the card. Logs each line and seconds; fails if one failed, a
+    recipe took more than ``N5_TIMEOUT_S``, or one moved a global random
+    state (the phases after the block then get the states a serial run
+    would have left them). Returns the sum-tree launches of the on-policy
+    checks and phases and of the multi-agent checks ("onpolicy", "marl")
+    and of each table of recipes (its name in ``RECIPE_TABLES``)."""
     from freerl_tpu_torch.train import golden
 
     tables = {tag: name for name, table, _ in RECIPE_TABLES
               for tag in getattr(golden, table)}
     runs, wall = side_by_side(block_task, list(LEARNING_CHECKS) +
-                              list(tables))
+                              list(BLOCK_PHASES) + list(tables))
     launches = dict(onpolicy=0, marl=0,
                     **{name: 0 for name, _, _ in RECIPE_TABLES})
     moved, late = {}, {}
     for name, rec in runs.items():
         log(rec["out"]["line"])
-        kind = "recipe" if name in tables else "learning"
+        kind = ("recipe" if name in tables else "phase"
+                if name in BLOCK_PHASES else "learning")
         log(f"[time] {kind} {name}: {rec['seconds']:.1f} s (side by side)")
-        driver = tables.get(name, LEARNING_CHECKS.get(name, {}).get("driver"))
+        driver = (tables.get(name) or BLOCK_PHASES.get(name, (0, 0, None))[2]
+                  or LEARNING_CHECKS.get(name, {}).get("driver"))
         if driver in launches:
             launches[driver] += rec["out"]["launches"]
         if name in tables and rec["seconds"] > N5_TIMEOUT_S:
@@ -3668,7 +3715,8 @@ def phase_learning_block() -> dict:
             moved[name] = rec["moved"]
     longest = max(runs[name]["seconds"] for name in LEARNING_CHECKS)
     log(f"[time] learning block: {wall:.1f} s for {len(LEARNING_CHECKS)} "
-        f"checks and {len(tables)} recipes side by side, "
+        f"checks, {len(BLOCK_PHASES)} phases and {len(tables)} recipes side "
+        f"by side, "
         f"{wall / longest:.2f}x the longest check ({longest:.1f} s); the "
         f"checks' and recipes' own times sum to "
         f"{sum(rec['seconds'] for rec in runs.values()):.1f} s")
@@ -4454,13 +4502,17 @@ def phase_golden_vs_jax() -> None:
     fail, or it is held to fail (an open fault of ``golden.OPEN_FAULTS``, a
     stale reference of ``golden.STALE_REFERENCES``, or a row whose gate,
     not the port, misses, ``golden.UNDERPOWERED``) and passes. A row of
-    ``golden.NOT_COMPARABLE`` is printed and held to nothing."""
+    ``golden.NOT_COMPARABLE`` is printed and held to nothing. The scalar
+    gates of ``golden.SCALAR_GATES`` (the GAIL imitation gate), keyed by
+    their names, are read from the port's results tree
+    (``golden.check_scalar``) and held the same way."""
     from freerl_tpu_torch.train import golden
 
     wrong = []
-    for s in golden.JAX_PARITY:
-        r = golden.check_against_jax(s)
-        key = golden.row_key(s)
+    rows = [(golden.row_key(s), golden.check_against_jax(s))
+            for s in golden.JAX_PARITY] + [
+        (g["name"], golden.check_scalar(g)) for g in golden.SCALAR_GATES]
+    for key, r in rows:
         why = (f" (open fault {golden.OPEN_FAULTS[key]})"
                if key in golden.OPEN_FAULTS else
                f" (stale reference, {golden.STALE_REFERENCES[key]})"
@@ -4723,10 +4775,121 @@ def envelope_recipe(tag: str, device: str = "cuda") -> dict:
     return dict(launches=launches, seconds=seconds, line=line)
 
 
+# how ``pixel_recipe`` cuts scripts/pixel_curve.py's run: whole chunks of
+# the recipe (128 vector steps of 8 envs), the first crossing its 1,000
+# start steps, so the learner steps on every vector step after the 125th
+PIXEL_SMOKE_CHUNKS = 2
+
+
+def pixel_recipe(tag: str, device: str = "cuda") -> dict:
+    """The run of ``golden.PIXEL_RUNS`` on ``device``, cut in depth:
+    ``scripts/torch_pixel_curve.train``, the function each seed of the
+    script runs, with the JAX script's configs (a replay of 100,000, batch
+    64, the 'small' trunk of 128 features, 8 envs, 4 updates a vector step)
+    for ``PIXEL_SMOKE_CHUNKS`` chunks. The returns must be finite and in
+    [1, 500], the learner must have stepped ``updates_per_burst`` times on
+    every vector step past ``start_steps``, and the run must launch no
+    sum-tree kernel (the path takes uniform replay). Returns the launches,
+    the run's seconds and a line to log."""
+    from freerl_tpu_torch.train import golden
+    from scripts import torch_pixel_curve as pixel
+
+    _, dqn, off = golden.PIXEL_RUNS[tag]
+    num_envs, upb = off["num_envs"], off["updates_per_burst"]
+    steps = PIXEL_SMOKE_CHUNKS * off["chunk_size"] * num_envs
+    r = pixel.train(0, device, tag, max_episodes=10**9, max_env_steps=steps,
+                    host_sync_every=1)
+    info, returns, launches = r["info"], r["returns"], r["launches"]
+    want = (steps - off["start_steps"] // num_envs * num_envs) // num_envs
+    if not (info["env_steps"] == steps and info["updates"] == want * upb
+            and len(returns) and np.isfinite(returns).all()
+            and returns.min() >= 1 and returns.max() <= 500):
+        raise AssertionError(f"{tag}: returns {returns}, {info}")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[pixel {tag}] scripts/torch_pixel_curve.py's configs {dqn} "
+            f"{off}: {PIXEL_SMOKE_CHUNKS} chunks, {info['env_steps']} env "
+            f"steps, {info['updates']} updates, {len(returns)} episodes "
+            f"(returns {returns.min():.0f} .. {returns.max():.0f}); sumtree "
+            f"launches {launches}, {r['seconds']:.1f} s")
+    return dict(launches=launches, seconds=r["seconds"], line=line)
+
+
+# how ``gail_recipe`` cuts scripts/gail_e2e.py's run: 8 expert episodes, the
+# first 4 iterations of 400 env steps (each env ends its first 200-step
+# episode in the 4th), and 2 GAIL iterations; the expert set whole
+GAIL_SMOKE_EXPERT_EPISODES, GAIL_SMOKE_ITERS = 8, 2
+
+
+def gail_recipe(tag: str, device: str = "cuda") -> dict:
+    """The run of ``golden.GAIL_RUNS`` on ``device``, cut in depth: the four
+    stages of ``scripts/torch_gail_e2e.run`` (the expert, its evaluation
+    and expert set, GAIL, the held-out evaluation) at
+    ``GAIL_SMOKE_EXPERT_EPISODES`` expert episodes and ``GAIL_SMOKE_ITERS``
+    GAIL iterations, into a temporary directory. The artifact set must be
+    whole, the expert must have taken 4 iterations and GAIL 2, every value
+    of the summary and of the curves must be finite, the expert set must
+    hold the recipe's pairs, ``golden.check_scalar`` must read the run's
+    summary for the gate (pass or FAIL, not missing), and no stage may
+    launch the sum-tree kernel. Returns the launches, the seconds and a
+    line to log."""
+    import tempfile
+
+    from freerl_tpu_torch.train import golden
+    from scripts import torch_gail_e2e as e2e
+
+    args = golden.GAIL_RUNS[tag]
+    gate = next(g for g in golden.SCALAR_GATES if g["name"] == tag)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        r = e2e.run(GAIL_SMOKE_EXPERT_EPISODES, GAIL_SMOKE_ITERS,
+                    args["n_expert_transitions"], args["seed"],
+                    os.path.join(d, "gail"), device, log=lambda msg: None)
+        files = sorted(os.listdir(r["run_dir"]))
+        curves = [np.load(os.path.join(r["run_dir"], name)) for name in
+                  ("expert_curve.npy", "gail_true_reward_curve.npy")]
+        pairs = np.load(os.path.join(r["run_dir"], "expert_data.npz"))
+        n_pairs = [pairs["states"].shape, pairs["actions"].shape]
+        row = golden.check_scalar(gate, root=d)
+    seconds = time.time() - t0
+    summary, launches = r["summary"], r["launches"]
+    want = ["config.json", "eval_rewards.npz", "expert_curve.npy",
+            "expert_data.npz", "gail_true_reward_curve.npy", "summary.json"]
+    if files != want or r["expert_info"]["iterations"] != 4 \
+            or r["gail_iterations"] != GAIL_SMOKE_ITERS:
+        raise AssertionError(f"{tag}: files {files}, expert "
+                             f"{r['expert_info']}, {r['gail_iterations']} "
+                             f"GAIL iterations")
+    if not (np.isfinite(list(summary.values())).all()
+            and all(np.isfinite(c).all() and len(c) for c in curves)
+            and n_pairs == [(args["n_expert_transitions"], 3),
+                            (args["n_expert_transitions"], 1)]):
+        raise AssertionError(f"{tag}: summary {summary}, curves {curves}, "
+                             f"expert set {n_pairs}")
+    if row["status"] not in ("pass", "FAIL") \
+            or row["ours"] != summary[gate["key"]]:
+        raise AssertionError(f"{tag}: check_scalar read {row}")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[gail {tag}] scripts/torch_gail_e2e.py's four stages: "
+            f"{r['expert_info']['episodes']} expert episodes in "
+            f"{r['expert_info']['iterations']} iterations, "
+            f"{args['n_expert_transitions']} expert pairs, "
+            f"{r['gail_iterations']} GAIL iterations; expert eval "
+            f"{summary['expert_eval_avg']:.2f}, GAIL eval "
+            f"{summary['gail_eval_avg']:.2f} (check_scalar: "
+            f"{row['status']}); stages "
+            f"{ {k: round(v, 1) for k, v in r['seconds'].items()} } s; "
+            f"sumtree launches {launches}, {seconds:.1f} s")
+    return dict(launches=launches, seconds=seconds, line=line)
+
+
 # each table of recipes, by the name of its launches, and the recipe of it
 RECIPE_TABLES = (("n5", "N5_RUNS", n5_recipe),
                  ("spread", "SPREAD_RUNS", spread_recipe),
-                 ("envelope", "ENVELOPE_RUNS", envelope_recipe))
+                 ("envelope", "ENVELOPE_RUNS", envelope_recipe),
+                 ("pixel", "PIXEL_RUNS", pixel_recipe),
+                 ("gail", "GAIL_RUNS", gail_recipe))
 
 
 def recipe(tag: str, device: str = "cuda") -> dict:
@@ -4805,16 +4968,12 @@ def main() -> int:
         sum(c["launches"] for c in continuous.values())
         + timed("discrete actor-critic", phase_discrete_actor_critic)
         + timed("her", phase_her))
-    timed("card-vs-cpu onpolicy", phase_card_vs_cpu_onpolicy)
-    kernel["launches_onpolicy"] = timed("onpolicy", phase_onpolicy)
+    # the on-policy phases, single- and multi-agent, card-vs-CPU and
+    # trained, run in the learning block (BLOCK_PHASES)
     timed("card-vs-cpu marl", phase_card_vs_cpu_marl)
     kernel["launches_marl"] = sum(
         timed(f"marl {label}", phase_marl, label)["launches"]
         for label in MARL_PATHS)
-    timed("card-vs-cpu marl onpolicy", phase_card_vs_cpu_marl_onpolicy)
-    kernel["launches_onpolicy"] += sum(
-        timed(f"marl onpolicy {label}", phase_marl_onpolicy, label)[
-            "launches"] for label in MARL_ONPOLICY_PATHS)
     timed("card-vs-cpu slice 6", phase_card_vs_cpu_slice6)
     kernel["launches_slice6"] = sum(
         timed(name, fn) for name, fn in (
@@ -4835,7 +4994,7 @@ def main() -> int:
     timed("card-vs-cpu slice 8 one-rank NCCL", phase_nccl_one_rank)
     timed("golden", phase_golden)
     block = timed("learning checks and recipes", phase_learning_block)
-    kernel["launches_onpolicy"] += block["onpolicy"]
+    kernel["launches_onpolicy"] = block["onpolicy"]
     kernel["launches_marl"] += block["marl"]
     for name, _, _ in RECIPE_TABLES:
         kernel[f"launches_{name}"] = block[name]

@@ -859,12 +859,15 @@ SCALAR_GATES = [
 ]
 
 
-def check_scalar(gate: dict) -> dict:
+def check_scalar(gate: dict, root: Optional[str] = None) -> dict:
+    """The gate's row from the newest summary its ``results/...`` glob
+    finds under ``root`` (the port's results tree, the parent of
+    ``OURS_ROOT``, by default)."""
     import glob
     import json
 
-    # the gate's "results/..." glob, under the port's results tree
-    root = os.path.dirname(os.path.normpath(OURS_ROOT))
+    if root is None:
+        root = os.path.dirname(os.path.normpath(OURS_ROOT))
     rel = gate["glob"].removeprefix("results/")
     paths = sorted(glob.glob(os.path.join(root, rel)))
     ours = None
@@ -926,6 +929,13 @@ class ParityRow(GoldenSpec):
     # the file of a seed's run dir that holds its curve, where it is not
     # the CLI's ``<ALGO>_seed_<s>.npy`` (the sweep's ``reward.npy``)
     curve_file: str = ""
+    # the JAX package's script a seed of the row runs, where its recipe is
+    # no CLI argv (``pixel_curve``: scripts/pixel_curve.py); ``regen`` is
+    # then that script's argv, and the port runs scripts/torch_<script>.py
+    script: str = ""
+    # 'seeds': the row is held by ``seed_rule`` over the seeds both sides
+    # keep, in place of ``check``'s gate
+    rule: str = ""
 
 
 def parity_row(spec: GoldenSpec, **changes) -> ParityRow:
@@ -1342,6 +1352,91 @@ def envelope_rows() -> List[ParityRow]:
     return out
 
 
+# scripts/pixel_curve.py's run (its lines 39-47), verbatim: tag -> (env,
+# DQNConfig's arguments but ``obs_shape``, which is the env's, and
+# OffPolicyConfig's but ``seed``, which is the script's ``--seed``). Neither
+# CLI builds a conv trunk, so its rows run the script (``script``), whose
+# only argv of the recipe is ``--seed``
+PIXEL_RUNS = {"DQN_pixel": (
+    "PixelCartPole-v1",
+    dict(buffer_size=100_000, batch_size=64, conv_arch="small",
+         cnn_features=128),
+    dict(num_envs=8, max_episodes=400, start_steps=1000,
+         updates_per_burst=4, chunk_size=128))}
+
+
+def pixel_rows() -> List[ParityRow]:
+    """scripts/pixel_curve.py's two rows (ROADMAP A3.5): the port's seed 0
+    against SPECS ``PixelCartPole-v1/DQN_seed_0``'s floor (the SPECS row
+    has no reference curve), and ``DQN_16_seed@jax_head`` over
+    ``DQN_LL_SEEDS16``, held by ``seed_rule`` against JAX at this commit;
+    both stacked raw, one run of the script a seed."""
+    env = PIXEL_RUNS["DQN_pixel"][0]
+    spec = spec_of(env, "DQN_seed_0")
+    common = dict(regen=("--seed", "{seed}"), smooth=False, pending=False,
+                  script="pixel_curve")
+    return [
+        parity_row(spec, regen_seeds=(0,), note=f"pixel_curve.py seed 0; "
+                   f"SPECS floor {spec.floor}", **common),
+        parity_row(spec, algo="DQN_16_seed", ref_path=f"{env}/DQN_16_seed.npy",
+                   regen_seeds=DQN_LL_SEEDS16, ref="jax_head", rule="seeds",
+                   note=f"pixel_curve.py over 16 seeds: both means >= "
+                        f"{spec.floor}, Mann-Whitney p >= {P_MIN}",
+                   **common)]
+
+
+# scripts/gail_e2e.py's run (its lines 31-36): the gate of ``SCALAR_GATES``
+# its summary feeds -> the script's arguments at their defaults
+GAIL_RUNS = {"GAIL_Pendulum_eval": dict(
+    expert_episodes=3000, gail_iters=800, n_expert_transitions=20_000,
+    seed=0)}
+
+
+# ROADMAP A3.5's rule for a ``rule='seeds'`` row: over the seeds of its
+# recipe that both sides keep, at least ``MIN_SEEDS`` of them, both sides'
+# mean final-window clears the row's floor and the two-sided Mann-Whitney p
+# of their per-seed final-windows is at least ``P_MIN``
+P_MIN, MIN_SEEDS = 0.05, 8
+
+
+def both_sides(row: GoldenSpec) -> tuple:
+    """The seeds of ``row``'s recipe that the port keeps under
+    ``OURS_ROOT`` and the JAX package under the row's reference tree
+    (``kept_seed``), in the row's order, and each side's per-seed
+    final-``window`` means over them: ``(seeds, port, jax)``."""
+    seeds = [s for s in row.regen_seeds
+             if kept_seed(OURS_ROOT, row, s)
+             and kept_seed(ref_root(row), row, s)]
+    means = [np.array([float(np.load(seed_file(root, row, s))[-row.window:]
+                             .mean()) for s in seeds])
+             for root in (OURS_ROOT, ref_root(row))]
+    return seeds, means[0], means[1]
+
+
+def seed_rule(row: GoldenSpec) -> dict:
+    """``check``'s row for a ``rule='seeds'`` row: 'pass' or 'FAIL' by the
+    rule above, 'waiting' with fewer than ``MIN_SEEDS`` seeds on both
+    sides, and the Mann-Whitney p and the seeds under ``p`` and
+    ``seeds``."""
+    from scipy.stats import mannwhitneyu
+
+    seeds, port, jax = both_sides(row)
+    ours = float(port.mean()) if len(seeds) else None
+    ref = float(jax.mean()) if len(seeds) else None
+    p, status = None, "waiting"
+    if len(seeds) >= MIN_SEEDS:
+        p = float(mannwhitneyu(port, jax, alternative="two-sided").pvalue)
+        ok = min(ours, ref) >= row.floor and p >= P_MIN
+        status = "pass" if ok else "FAIL"
+    return {
+        "env": row.env, "algo": row.algo, "ours": ours, "ref": ref,
+        "slack": row.slack, "status": status, "note": row.note,
+        "ours_seeds": [round(float(x), 1) for x in port],
+        "ref_seeds": [round(float(x), 1) for x in jax],
+        "seed_overlap": None, "p": p, "seeds": seeds,
+    }
+
+
 JAX_PARITY: List[GoldenSpec] = [
     GoldenSpec(
         # scripts/torch_northstar.py at 4096 envs x 8 updates x 150M env
@@ -1403,13 +1498,15 @@ JAX_PARITY: List[GoldenSpec] = [
                     "MountainCarContinuous-v0/PPO_ObsNorm_3_seed@jax_head"),
                seeds) for seeds in (DQN_LL_SEEDS48, DQN_LL_SEEDS96)] + [
     more_seeds(n5_rows("MAAC_N5")[1], DQN_LL_SEEDS16),
-] + [row for tag in SPREAD_RUNS for row in spread_rows(tag)]
+] + [row for tag in SPREAD_RUNS for row in spread_rows(tag)] + [
+    pixel_rows()[0]]
 
 # rows whose recipe the port runs and keeps, but that no gate holds yet:
 # their reference is not made. ENVELOPE's recipe in the JAX package at this
 # commit takes ~0.13 s a learner step on an 8-core CPU (a 32,768-row batch
-# a step), 1.2-5.1 hours a seed (ROADMAP A3.4)
-RUN_ONLY: List[GoldenSpec] = envelope_rows()
+# a step), 1.2-5.1 hours a seed (ROADMAP A3.4); the 16-seed pixel row waits
+# for ``MIN_SEEDS`` JAX seeds (ROADMAP A3.5)
+RUN_ONLY: List[GoldenSpec] = envelope_rows() + [pixel_rows()[1]]
 
 
 def recipe_row(key: str) -> GoldenSpec:
@@ -1421,10 +1518,14 @@ def recipe_row(key: str) -> GoldenSpec:
     raise KeyError(f"{key!r} is not a row of golden.JAX_PARITY or RUN_ONLY")
 
 
-# rows of JAX_PARITY (by ``row_key``) whose committed port curve misses its
-# gate, with the open fault of ROADMAP's queue C that tracks each: such a
-# row must read FAIL until the fault is closed. None is open
-OPEN_FAULTS: dict = {}
+# rows of JAX_PARITY (by ``row_key``), and gates of SCALAR_GATES (by name),
+# whose committed port result misses its gate, with the open fault of
+# ROADMAP's queue C that tracks each: such a row must read FAIL until the
+# fault is closed. C20: the port's scripts/gail_e2e.py seed 0 reads
+# gail_eval_avg -402.8 against the gate's -190.0 (the JAX package at this
+# commit reads -198.3 to -819.5 over its seeds 0-7 on the CPU,
+# results/torch/jax_head/gail/Pendulum-v1/)
+OPEN_FAULTS: dict = {"GAIL_Pendulum_eval": "C20"}
 # rows whose seeds would train on another task in each package, each with
 # the reason: checked and printed, but held to nothing (neither a pass nor a
 # fault). ``--fixed_reset`` pins every episode to the start the seed draws,
@@ -1503,7 +1604,9 @@ def check_against_jax(row: GoldenSpec) -> dict:
     """``check`` of ``row`` with the reference read from the tree the row
     names (``ref_root``; the JAX package's committed curves,
     ``JAX_CURVES_ROOT``, by default): a port curve that is absent reads
-    ``missing``."""
+    ``missing``. A ``rule='seeds'`` row is held by ``seed_rule``."""
+    if getattr(row, "rule", "") == "seeds":
+        return seed_rule(row)
     return check(row, ref_root=ref_root(row))
 
 
@@ -1552,9 +1655,10 @@ def seed_file(root: str, spec: GoldenSpec, seed: int) -> str:
 # flags of a CLI run that say where and how it runs, not what it trains,
 # with the count of values each takes
 # (``--and_sweep``: scripts/torch_envelope_e2e.py's run of the CLI argv
-# that sweeps the run dir after training)
+# that sweeps the run dir after training; ``--cpu``: a JAX script's run on
+# the CPU, scripts/pixel_curve.py's)
 _RUN_FLAGS = {"--results_root": 1, "--no_tensorboard": 0, "--device": 1,
-              "--and_sweep": 0}
+              "--and_sweep": 0, "--cpu": 0}
 
 
 def recipe_of(command: str) -> list:

@@ -12,7 +12,9 @@ The jobs: the north-star point (``scripts/torch_northstar.py`` at
 ``ENV/STEM@jax_head``), one run of the row's recipe per seed through the
 port's CLI (``golden.regen_argv``, as ``golden.regenerate`` runs it; a row
 that sweeps its runs, ``then_sweep``, through ``SWEEP_RUNNER``, one job a
-seed for every row of its recipe); ``--seeds`` runs only those of a row's
+seed for every row of its recipe; a row whose recipe is a script's argv,
+``script``, through the port's ``scripts/torch_<script>.py``, which keeps
+the seed's curve and record itself); ``--seeds`` runs only those of a row's
 seeds, in the order given (a queue longest first), so a long row can be
 spread over several calls. A seed whose raw
 curve is kept under ``golden.OURS_ROOT`` (``golden.kept_seed``: its file is
@@ -108,6 +110,7 @@ def make_jobs(northstar, keys, total_steps, device, results_root,
         if not spec.regen:
             raise ValueError(f"{key} has no recipe: the north star runs "
                              f"through --northstar")
+        script = getattr(spec, "script", "")
         for seed in (spec.regen_seeds if seeds is None else
                      [s for s in seeds if s in spec.regen_seeds]):
             path = golden.seed_file(golden.OURS_ROOT, spec, seed)
@@ -115,6 +118,16 @@ def make_jobs(northstar, keys, total_steps, device, results_root,
                     golden.OURS_ROOT, spec, seed)):
                 continue
             made.add(path)
+            if script:
+                # a recipe that is no CLI argv: the port's script of it
+                # runs the seed and keeps its curve and record itself
+                jobs.append(dict(
+                    name=f"{spec.env}_{spec.algo}_seed_{seed}", row=key,
+                    also=[], seed=seed, script=script, argv=[
+                        sys.executable, "-m", f"scripts.torch_{script}",
+                        *[a.format(seed=seed) for a in spec.regen],
+                        "--device", device]))
+                continue
             argv = golden.regen_argv(spec, seed, results_root, device)
             sweep = getattr(spec, "then_sweep", False)
             # the rows of a swept recipe share each seed's run
@@ -216,6 +229,13 @@ def keep_seeds(jobs: list, log_dir: str) -> None:
     copy them into ``log_dir``."""
     for j in jobs:
         if "seed" not in j or j.get("rc") != 0:
+            continue
+        if "script" in j:
+            spec = parity_row(j["row"])
+            for path in (golden.seed_file(golden.OURS_ROOT, spec, j["seed"]),
+                         os.path.join(golden.OURS_ROOT, spec.env,
+                                      "provenance.json")):
+                _keep(path, log_dir)
             continue
         with open(j["log"]) as f:
             info = golden.parse_run_log(f.read())

@@ -4,6 +4,12 @@ JAX code for the port's parity rows held against ``jax_head``.
     python3 scripts/torch_jax_head.py ENV/STEM@jax_head [...] [--jobs 6]
         [--out results/torch/jax_head] [--work build/jax_head] [--force]
 
+``--gail SEED ...`` runs the JAX package's scripts/gail_e2e.py at its
+defaults on the CPU for each seed instead (``run_gail``) and keeps each
+seed's summary, eval returns and curves under
+``<out>/gail/Pendulum-v1/GAIL_seed_<s>/``, with its record in
+``<out>/gail/Pendulum-v1/provenance.json``.
+
 Each argument is a key (``golden.row_key``) of a row of
 ``golden.JAX_PARITY`` or ``golden.RUN_ONLY`` whose reference is
 ``jax_head``; a row that sweeps its runs (``then_sweep``) runs
@@ -28,8 +34,19 @@ package pins (``jax_starts``: the env the JAX CLI builds from the recipe,
 reset once on the CPU); a kept fixed-reset seed whose record has no start,
 or another start than the JAX package pins now, stops the script.
 
+A row whose recipe is a script's argv (``script``: scripts/pixel_curve.py)
+runs the JAX package's own script, ``python -m scripts.<script> --cpu
+<recipe>``, in a directory of its own under ``--work`` (``script_dir``):
+the script saves its curve under its working directory's
+``results/learning_curves/``, which must not be the repo's. The kept
+seed's record has the counts the script prints. ``--one_thread`` runs
+each command with XLA on one CPU thread (``ONE_THREAD``, recorded as
+``xla_flags``); ``--deadline`` stops the commands still running after that
+many seconds, keeps the seeds that finished and reads the others as
+failed; ``--seeds`` runs only those of each row's seeds.
+
 The script imports nothing of JAX and nothing of the JAX package; it exits
-non-zero if a seed's command fails.
+non-zero if a seed's command fails or is stopped.
 """
 from __future__ import annotations
 
@@ -57,12 +74,22 @@ def head_row(key: str) -> golden.ParityRow:
 
 
 def jax_argv(row: golden.ParityRow, seed: int, work: str) -> list:
-    """The JAX CLI's command line for one seed of ``row``'s recipe."""
+    """The JAX CLI's command line for one seed of ``row``'s recipe; for a
+    row whose recipe is a script's argv (``script``), the JAX package's
+    script on the CPU (``--cpu``)."""
+    if getattr(row, "script", ""):
+        return [sys.executable, "-m", f"scripts.{row.script}", "--cpu",
+                *[a.format(seed=seed) for a in row.regen]]
     return [sys.executable, "-m", "freerl_tpu.cli",
             *[a.format(seed=seed) for a in row.regen],
             "--results_root", os.path.join(work, row.env, f"seed_{seed}"),
             "--no_tensorboard"]
 
+
+# XLA on one CPU thread a process: several JAX commands then share the
+# cores without each spawning a thread pool of its own
+ONE_THREAD = ("--xla_cpu_multi_thread_eigen=false "
+              "intra_op_parallelism_threads=1")
 
 # scripts/envelope_e2e.py's sweep of one run dir, as
 # scripts/envelope_seed_sweep.sh runs it after each seed's training (never
@@ -75,6 +102,37 @@ SWEEP_CODE = ("import sys; sys.path.insert(0, '.'); "
 def sweep_argv(run_dir: str) -> list:
     """The command that sweeps one JAX run dir (``SWEEP_CODE``)."""
     return [sys.executable, "-c", SWEEP_CODE, run_dir]
+
+
+def script_dir(work: str, row: golden.ParityRow, seed: int) -> str:
+    """The working directory of one seed of a ``script`` row: the JAX
+    script writes its curve relative to it
+    (``results/learning_curves/<env>/``; scripts/pixel_curve.py:48-50), so
+    it must not be the repo's root, whose committed curves it would
+    overwrite."""
+    return os.path.join(work, row.env, f"{row.script}_seed_{seed}")
+
+
+def script_curve(row: golden.ParityRow, seed: int, cwd: str) -> str:
+    """Where a ``script`` row's JAX script saved one seed's curve."""
+    return os.path.join(cwd, "results", "learning_curves", row.env,
+                        f"{golden._label(row)}_seed_{seed}.npy")
+
+
+def parse_script_log(text: str) -> dict:
+    """The counts of the loop's ``info`` dict that a JAX script prints
+    (``info: {...}``)."""
+    import re
+
+    out = {}
+    for key in ("env_steps", "updates", "episodes"):
+        m = re.search(rf"'{key}': (\d+)", text)
+        if m is not None:
+            out[key] = int(m.group(1))
+    m = re.search(r"'elapsed_s': ([0-9.e+-]+)", text)
+    if m is not None:
+        out["loop_s"] = round(float(m.group(1)), 1)
+    return out
 
 
 def _git(*args) -> str | None:
@@ -139,22 +197,47 @@ def jax_starts(tasks: list) -> dict:
             for (row, seed), start in zip(todo, starts)}
 
 
-def run_seeds(tasks: list, n_jobs: int, log_dir: str) -> list:
-    """Run ``(row, seed, argv)`` tasks, ``n_jobs`` at once; a task of a
+def run_seeds(tasks: list, n_jobs: int, log_dir: str,
+              xla_flags: str | None = None,
+              deadline: float | None = None) -> list:
+    """Run ``(row, seed, argv)`` tasks, ``n_jobs`` at once, with
+    ``XLA_FLAGS`` set to ``xla_flags`` where given; a task of a
     ``then_sweep`` row sweeps its run dir (``sweep_argv``) in the same slot
-    once its training ends well, into the same log. Returns one record per
-    task (``rc``, ``seconds``, ``log``, and ``sweep``, the sweep's command,
-    where one ran)."""
+    once its training ends well, into the same log; a task of a ``script``
+    row runs in its ``script_dir`` under ``log_dir``, with the repo on
+    ``PYTHONPATH``. At ``deadline`` seconds the tasks still running are
+    stopped (``rc`` None) and those not started are dropped. Returns one
+    record per task (``rc``, ``seconds``, ``log``, ``cwd``, and ``sweep``,
+    the sweep's command, where one ran)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
+    if xla_flags is not None:
+        env["XLA_FLAGS"] = xla_flags
     pending, running, done = list(tasks), [], []
+    t_start = time.time()
     while pending or running:
+        if deadline is not None and time.time() - t_start > deadline:
+            for rec, proc, f, t0 in running:
+                proc.kill()
+                proc.wait()
+                f.close()
+                rec.update(rc=None, seconds=round(time.time() - t0, 1))
+                done.append(rec)
+                print(f"[deadline] {rec['row'].env} {rec['row'].algo} seed "
+                      f"{rec['seed']} stopped after {rec['seconds']} s",
+                      flush=True)
+            break
         while pending and len(running) < n_jobs:
             row, seed, argv = pending.pop(0)
             log = os.path.join(log_dir, f"{row.env}_{row.algo}_{seed}.log")
+            cwd, task_env = ROOT, env
+            if getattr(row, "script", ""):
+                cwd = script_dir(log_dir, row, seed)
+                os.makedirs(cwd, exist_ok=True)
+                task_env = dict(env, PYTHONPATH=ROOT)
             f = open(log, "w")
-            proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=f,
+            proc = subprocess.Popen(argv, cwd=cwd, env=task_env, stdout=f,
                                     stderr=subprocess.STDOUT)
-            rec = dict(row=row, seed=seed, argv=argv, log=log)
+            rec = dict(row=row, seed=seed, argv=argv, log=log, cwd=cwd)
             running.append((rec, proc, f, time.time()))
             print(f"[start] {row.env} {row.algo} seed {seed}", flush=True)
         for item in list(running):
@@ -190,9 +273,93 @@ def _command(argv: list) -> str:
                                    for a in argv[1:]]])
 
 
+# scripts/gail_e2e.py's artifacts of one run that are kept for a seed (the
+# expert set and the config, which names the run's own paths, are not)
+GAIL_KEPT = ("summary.json", "eval_rewards.npz", "expert_curve.npy",
+             "gail_true_reward_curve.npy")
+
+
+def gail_dir(root: str, seed: int) -> str:
+    """Where one seed of scripts/gail_e2e.py is kept under ``root``."""
+    return os.path.join(root, "gail", "Pendulum-v1", f"GAIL_seed_{seed}")
+
+
+def run_gail(seeds: list, n_jobs: int, out: str, work: str,
+             xla_flags: str | None, force: bool = False) -> list:
+    """scripts/gail_e2e.py at its defaults on the CPU, one command a seed,
+    ``n_jobs`` at once, each writing its run dir under ``<work>/gail``;
+    keeps each finished seed's ``GAIL_KEPT`` under ``gail_dir(out, seed)``
+    and its record (the command, the commit, the JAX version, the device,
+    the XLA flags, the seconds and the two evaluations) in
+    ``<out>/gail/Pendulum-v1/provenance.json``. A seed kept already is not
+    run again unless ``force``. Returns the seeds whose command failed."""
+    import glob
+    import shutil
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    if xla_flags is not None:
+        env["XLA_FLAGS"] = xla_flags
+    todo = [s for s in seeds if force or not os.path.isfile(
+        os.path.join(gail_dir(out, s), "summary.json"))]
+    commit = _git("rev-parse", "HEAD")
+    clean = _git("status", "--porcelain", "--", "freerl_tpu") == ""
+    version = jax_version()
+    running, failed = [], []
+    while todo or running:
+        while todo and len(running) < n_jobs:
+            seed = todo.pop(0)
+            run_out = os.path.join(work, "gail", f"seed_{seed}")
+            argv = [sys.executable, "-m", "scripts.gail_e2e", "--cpu",
+                    "--seed", str(seed), "--out", run_out]
+            os.makedirs(run_out, exist_ok=True)
+            f = open(os.path.join(run_out, "log.txt"), "w")
+            running.append((seed, argv, run_out, subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=f,
+                stderr=subprocess.STDOUT), f, time.time()))
+            print(f"[start] gail_e2e seed {seed}", flush=True)
+        for item in list(running):
+            seed, argv, run_out, proc, f, t0 = item
+            if proc.poll() is None:
+                continue
+            f.close()
+            running.remove(item)
+            seconds = round(time.time() - t0, 1)
+            print(f"[end] gail_e2e seed {seed}: rc {proc.returncode} in "
+                  f"{seconds} s", flush=True)
+            if proc.returncode != 0:
+                failed.append(seed)
+                continue
+            run_dir = sorted(glob.glob(os.path.join(
+                run_out, "Pendulum-v1", "GAIL", "*", "summary.json")))[-1]
+            run_dir = os.path.dirname(run_dir)
+            keep = gail_dir(out, seed)
+            os.makedirs(keep, exist_ok=True)
+            for name in GAIL_KEPT:
+                shutil.copy(os.path.join(run_dir, name), keep)
+            with open(os.path.join(keep, "summary.json")) as sf:
+                summary = json.load(sf)
+            command = "JAX_PLATFORMS=cpu " + _command(
+                argv[:-1] + ["<work>/gail/seed_" + str(seed)])
+            if xla_flags is not None:
+                command = f"XLA_FLAGS={shlex.quote(xla_flags)} " + command
+            golden.update_provenance(
+                os.path.join(out, "gail"), "Pendulum-v1", seeds={
+                    os.path.basename(keep): dict(
+                        command=command, commit=commit,
+                        freerl_tpu_clean=clean, jax=version, device="cpu",
+                        xla_flags=xla_flags, seconds=seconds, **{
+                            k: summary[k] for k in ("expert_eval_avg",
+                                                    "gail_eval_avg")})})
+        time.sleep(1.0)
+    return failed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("rows", nargs="+", help="ENV/STEM@jax_head row keys")
+    ap.add_argument("rows", nargs="*", help="ENV/STEM@jax_head row keys")
+    ap.add_argument("--gail", type=int, nargs="+", default=None,
+                    metavar="SEED", help="run scripts/gail_e2e.py for these "
+                    "seeds (``run_gail``) in place of rows")
     ap.add_argument("--jobs", type=int, default=6,
                     help="JAX CLI commands at once")
     ap.add_argument("--out", default=golden.JAX_HEAD_ROOT)
@@ -200,7 +367,21 @@ def main(argv=None) -> int:
                                                    "jax_head"))
     ap.add_argument("--force", action="store_true",
                     help="rerun seeds whose curve is kept already")
+    ap.add_argument("--one_thread", action="store_true",
+                    help="XLA on one CPU thread a command (ONE_THREAD)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="seconds after which running commands are stopped")
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="run only these of each row's seeds, in the row's "
+                         "order (default: all)")
     args = ap.parse_args(argv)
+    xla_flags = ONE_THREAD if args.one_thread else None
+    if args.gail is not None:
+        failed = run_gail(args.gail, args.jobs, args.out, args.work,
+                          xla_flags, args.force)
+        if failed:
+            print("FAILED:", failed, flush=True)
+        return 1 if failed else 0
     rows = [head_row(k) for k in args.rows]
     os.makedirs(args.work, exist_ok=True)
     starts = jax_starts([(row, seed) for row in rows
@@ -208,6 +389,8 @@ def main(argv=None) -> int:
     tasks, seen, shared = [], set(), {}
     for row in rows:
         for seed in row.regen_seeds:
+            if args.seeds is not None and seed not in args.seeds:
+                continue
             path = golden.seed_file(args.out, row, seed)
             start = starts.get((golden.row_key(row), seed))
             if path in seen or (not args.force and golden.kept_seed(
@@ -224,7 +407,8 @@ def main(argv=None) -> int:
     commit = _git("rev-parse", "HEAD")
     clean = _git("status", "--porcelain", "--", "freerl_tpu") == ""
     version = jax_version()
-    records = run_seeds(tasks, args.jobs, args.work)
+    records = run_seeds(tasks, args.jobs, args.work, xla_flags,
+                        args.deadline)
     failed = []
     for rec in records:
         seed = rec["seed"]
@@ -232,8 +416,25 @@ def main(argv=None) -> int:
             failed.append(f"{golden.row_key(rec['row'])}:{seed}")
             continue
         with open(rec["log"]) as f:
-            info = golden.parse_run_log(f.read())
+            text = f.read()
         command = "JAX_PLATFORMS=cpu " + _command(rec["argv"])
+        if xla_flags is not None:
+            command = f"XLA_FLAGS={shlex.quote(xla_flags)} " + command
+        if getattr(rec["row"], "script", ""):
+            row = rec["row"]
+            curve = np.load(script_curve(row, seed, rec["cwd"]))
+            path = golden.seed_file(args.out, row, seed)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.save(path, curve)
+            golden.update_provenance(args.out, row.env, seeds={
+                os.path.basename(path): dict(
+                    command="PYTHONPATH=. " + command, commit=commit,
+                    freerl_tpu_clean=clean, jax=version, device="cpu",
+                    xla_flags=xla_flags, seconds=rec["seconds"],
+                    **parse_script_log(text),
+                    final50=round(float(curve[-50:].mean()), 4))})
+            continue
+        info = golden.parse_run_log(text)
         swept = {}
         if "sweep" in rec:
             command += " && " + _command(rec["sweep"])

@@ -354,18 +354,18 @@ def test_jax_side_writes_only_under_its_roots(tmp_path, monkeypatch,
 
 
 def test_port_seeds_on_the_card_are_kept():
-    """The port's seeds of the recipe trained and swept on the card (13 of
-    the 16; seeds 1, 12 and 14 were cut at the call's deadline): each kept
-    for both rows by the recipe, with its sweep's summary, no sum-tree
-    launch and the card named; the curve is 5,000 episodes or more and the
-    sweep 100 finite returns whose mean is the summary's. No stack is made
-    until every seed is kept."""
+    """The port's seeds of the recipe trained and swept on the card, all
+    16 (13 in one call; seeds 1, 12 and 14, cut there at its deadline, in
+    a call of their own): each kept for both rows by the recipe, with its
+    sweep's summary, no sum-tree launch and the card named; the curve is
+    5,000 episodes or more and the sweep 100 finite returns whose mean is
+    the summary's. Both rows are stacked raw from the kept seeds."""
     curve_row, sweep_row = golden.envelope_rows()
     with open(os.path.join(golden.OURS_ROOT, ENV, "provenance.json")) as f:
         prov = json.load(f)
     kept = [s for s in curve_row.regen_seeds
             if golden.kept_seed(golden.OURS_ROOT, curve_row, s)]
-    assert kept == [s for s in golden.DQN_LL_SEEDS16 if s not in (1, 12, 14)]
+    assert kept == list(golden.DQN_LL_SEEDS16)
     for s in kept:
         assert golden.kept_seed(golden.OURS_ROOT, sweep_row, s)
         rec = prov["seeds"][f"ENVELOPE_sweep_seed_{s}.npy"]
@@ -380,8 +380,15 @@ def test_port_seeds_on_the_card_are_kept():
                                                        "recall", "CR"))
         curve = np.load(golden.seed_file(golden.OURS_ROOT, curve_row, s))
         assert len(curve) >= 5000 and rec["episodes"] >= 5000
-    assert not os.path.isfile(os.path.join(golden.OURS_ROOT, ENV,
-                                           curve_row.algo + ".npy"))
+    for row in (curve_row, sweep_row):
+        stack = np.load(os.path.join(golden.OURS_ROOT, ENV,
+                                     row.algo + ".npy"))
+        seeds = [np.load(golden.seed_file(golden.OURS_ROOT, row, s))
+                 for s in kept]
+        t = min(len(c) for c in seeds)
+        np.testing.assert_array_equal(stack, np.stack([c[:t]
+                                                       for c in seeds]))
+        assert prov["stacks"][row.algo]["seeds"] == kept
 
 
 def test_probe_projects_each_seed(tmp_path):

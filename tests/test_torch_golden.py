@@ -5,6 +5,7 @@ test writes into ``results/learning_curves/``). The port's curves have a
 tree of their own: by default it lies outside the JAX package's
 ``results/learning_curves/``, which a regenerate leaves as it was."""
 import dataclasses
+import glob
 import hashlib
 import importlib.util
 import os
@@ -37,6 +38,10 @@ def test_check_all_rows_equal_jax(monkeypatch):
     own_root = golden.OURS_ROOT
     ported = {(s.env, s.algo) for s in golden.SPECS if os.path.isfile(
         os.path.join(own_root, s.env, s.algo + ".npy"))}
+    # a scalar gate reads the port's summary where its results tree has one
+    ported |= {(g["name"], g["key"]) for g in golden.SCALAR_GATES
+               if glob.glob(os.path.join(os.path.dirname(own_root),
+                                         g["glob"].removeprefix("results/")))}
     monkeypatch.setattr(golden, "OURS_ROOT", jax_golden.OURS_ROOT)
     rows, want = golden.check_all(), jax_golden.check_all()
     assert rows == want
@@ -188,7 +193,10 @@ def test_missing_port_curve_reads_missing(row, tmp_path, monkeypatch):
     monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path))
     got = golden.check_against_jax(row)
     assert got["status"] == "missing" and got["ours"] is None
-    assert got["ref"] is not None      # the JAX curve is read
+    # the JAX curve is read, where the row names one (SPECS' pixel row is
+    # held by its floor alone)
+    assert (got["ref"] is not None) == bool(row.ref_path or row.ref_paths)
+    assert row.ref_path or row.floor is not None
 
 
 def test_parity_rows_are_fixed():
@@ -252,10 +260,11 @@ def test_committed_port_curves_pass(row):
 
 def test_held_rows_are_rows():
     """Every key that ``OPEN_FAULTS``, ``STALE_REFERENCES``,
-    ``UNDERPOWERED`` and ``NOT_COMPARABLE`` hold names a row, and no row is
-    in two of them; an ``UNDERPOWERED`` row names its evidence, a row that
-    shows it or a committed file."""
-    keys = {golden.row_key(r) for r in golden.JAX_PARITY}
+    ``UNDERPOWERED`` and ``NOT_COMPARABLE`` hold names a row, or a scalar
+    gate by its name, and no row is in two of them; an ``UNDERPOWERED`` row
+    names its evidence, a row that shows it or a committed file."""
+    keys = {golden.row_key(r) for r in golden.JAX_PARITY} | {
+        g["name"] for g in golden.SCALAR_GATES}
     held = [set(golden.OPEN_FAULTS), set(golden.STALE_REFERENCES),
             set(golden.UNDERPOWERED), set(golden.NOT_COMPARABLE)]
     root = os.path.join(os.path.dirname(__file__), "..")
@@ -393,6 +402,7 @@ def test_rows_held_to_fail(held, tmp_path, monkeypatch):
     row = golden.GoldenSpec("Env-v0", "X_3_seed", "Env-v0/X_3_seed.npy",
                             slack=50.0)
     monkeypatch.setattr(golden, "JAX_PARITY", [row])
+    monkeypatch.setattr(golden, "SCALAR_GATES", [])
     monkeypatch.setattr(golden, "OPEN_FAULTS", {})
     monkeypatch.setattr(golden, "STALE_REFERENCES", {})
     monkeypatch.setattr(golden, "UNDERPOWERED", {})

@@ -50,10 +50,11 @@ def test_moved_rngs_names_the_states_a_draw_moves():
 
 
 def test_the_block_runs_the_checks_and_the_recipes(monkeypatch):
-    """``phase_learning_block`` runs every learning check and every recipe
-    of ``RECIPE_TABLES`` in one block (``block_task`` sends each name to
-    ``phase_learning`` or ``recipe``), sums the sum-tree launches by the
-    checks' drivers and the recipes' tables, and fails on a recipe over
+    """``phase_learning_block`` runs every learning check, every phase of
+    ``BLOCK_PHASES`` and every recipe of ``RECIPE_TABLES`` in one block
+    (``block_task`` sends each name to ``phase_learning``, ``block_phase``
+    or ``recipe``), sums the sum-tree launches by the checks' drivers, the
+    phases' counts and the recipes' tables, and fails on a recipe over
     ``N5_TIMEOUT_S`` or a moved random state, naming it."""
     from freerl_tpu_torch.train import golden
 
@@ -61,6 +62,13 @@ def test_the_block_runs_the_checks_and_the_recipes(monkeypatch):
                         lambda name: dict(line=f"check {name}", launches=1))
     monkeypatch.setattr(chip_smoke, "recipe",
                         lambda tag: dict(line=f"recipe {tag}", launches=2))
+    # each phase as it returns: launches as an int, in a dict, or none
+    fakes = {name: ((lambda *a: dict(launches=4)) if args else
+                    (lambda: 4) if key else (lambda: None), args, key)
+             for name, (_, args, key) in chip_smoke.BLOCK_PHASES.items()}
+    monkeypatch.setattr(chip_smoke, "BLOCK_PHASES", fakes)
+    phases = [key for _, _, key in fakes.values()]
+    assert phases.count("onpolicy") == 7 and phases.count(None) == 2
     seconds = {}
 
     def in_process(fn, names, args=(), timeout=None):
@@ -71,9 +79,10 @@ def test_the_block_runs_the_checks_and_the_recipes(monkeypatch):
     got = chip_smoke.phase_learning_block()
     tables = {name: len(getattr(golden, table))
               for name, table, _ in chip_smoke.RECIPE_TABLES}
-    assert tables == {"n5": len(golden.N5_RUNS), "spread": 1, "envelope": 1}
+    assert tables == {"n5": len(golden.N5_RUNS), "spread": 1, "envelope": 1,
+                      "pixel": 1, "gail": 1}
     drivers = [c.get("driver") for c in chip_smoke.LEARNING_CHECKS.values()]
-    assert got == {"onpolicy": drivers.count("onpolicy"),
+    assert got == {"onpolicy": drivers.count("onpolicy") + 4 * 7,
                    "marl": drivers.count("marl"),
                    **{name: 2 * n for name, n in tables.items()}}
     seconds["ENVELOPE"] = chip_smoke.N5_TIMEOUT_S + 1

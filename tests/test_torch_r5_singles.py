@@ -200,7 +200,8 @@ def test_gate_rows_are_dataclass_copies():
     assert dataclasses.astuple(row)[:n] == dataclasses.astuple(
         golden.SPECS[0])
     assert (row.ref, row.smooth, row.bins, row.then_sweep,
-            row.curve_file) == ("jax_head", True, 0, False, "")
+            row.curve_file, row.script, row.rule) == (
+        "jax_head", True, 0, False, "", "", "")
 
 
 def test_fixed_reset_starts_are_each_packages_own_draw():
