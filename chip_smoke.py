@@ -13,6 +13,19 @@ Phases (any failure raises, and the script exits non-zero):
    out) with L2 warm and, for the kernel, cold; the empty-kernel floor of
    one launch on the kernel's grid; and the eager call times of the kernel
    and the yardstick, host overhead included;
+   then the walker's kernels (``csrc/bipedal_step.cu``): K3
+   (``bipedal_reset``) on 4, 8, 10 and 1,024 rows against the plain
+   version on the CPU (the terrain bit-equal), K2 (``bipedal_step``)
+   through ``step_auto_reset`` against the plain version on the card over
+   100 teacher-forced steps of 4, 8, 10 and 256 envs (the main path's
+   counts, each part of one block, and two whole blocks) at the CPU
+   phase's rule (item 11), each count held on its own, and at 8, 256 and
+   1,024 envs each kernel's and the plain version's device time, the
+   launch floor, the bound (K2's bytes count the terrain floats the step
+   reads, K2's and K3's operations the lidar samples the data needs), and
+   the vector step as the
+   loops call it with the kernels and with the plain version, with its
+   kernels a step;
 4. the port on the card against the port on the CPU at small sizes
    (LunarLander steps, DQN updates, the PER buffer), then for the trick
    matrix and the discrete envs: five Rainbow updates from identical
@@ -102,7 +115,10 @@ Phases (any failure raises, and the script exits non-zero):
     ``collect_expert_data``, three ``train_gail`` iterations at 8 envs,
     then D must tell the expert from the policy); CEM-GD3PG on
     Pendulum-v1 with its defaults for 12 episodes (one ES tell / ask
-    cycle and the elite mixing); ENVELOPE through ``train_offpolicy`` on
+    cycle and the elite mixing), then its learner burst as a CUDA graph
+    against the eager loop at scripts/r5_cem_bipedal.py's config on the
+    walker's widths, 200 learner steps over both branches, params and Adam
+    moments bit-equal; ENVELOPE through ``train_offpolicy`` on
     deep-sea-treasure-v0 with its defaults, 1024 envs, 96 vector steps
     (the record equals the raw rewards scalarized with
     ``record_weights``); pixel DQN on PixelCartPole-v1 (pixel_curve.py's
@@ -210,7 +226,14 @@ Phases (any failure raises, and the script exits non-zero):
     four stages (``golden.GAIL_RUNS``) through
     ``scripts/torch_gail_e2e.run`` with 8 expert episodes and 2 GAIL
     iterations (``gail_recipe``): the artifact set whole, finite, and read
-    by ``golden.check_scalar``; neither launches the sum-tree kernel;
+    by ``golden.check_scalar``; scripts/r5_cem_bipedal.py's draw 0
+    (``golden.CEM_BIPEDAL_RUNS``) through
+    ``scripts/torch_r5_cem_bipedal.train`` for its first ES generation
+    and two episodes more (``cem_bipedal_recipe``: finite returns, one
+    learner step a burst row from the kept CUDA graphs, K2 and K3
+    launched), and r5_singles.py's PPO BipedalWalker run at its first
+    seed through the CLI's build for 3 updates (``ppo_bipedal_recipe``:
+    K2 once a vector step); none launches the sum-tree kernel;
 31. determinism: the same seed twice on the card, the records and every
     tensor of the final states bit-equal, each run with an optimizer step
     after its warm-up: DQN on CartPole-v1 seed 7 and PPO on Pendulum-v1
@@ -237,12 +260,14 @@ Phases (any failure raises, and the script exits non-zero):
 32. stop the processes the run started and that would outlive it (the
     forkserver behind ``HostVecEnv``'s workers and multiprocessing's
     resource tracker); any other child still running fails the run;
-33. print one JSON line describing each kernel (with its launches on the
-    main path, and on the Rainbow, continuous, on-policy, multi-agent
+33. print one JSON line describing each kernel: B1 (with its launches on
+    the main path, and on the Rainbow, continuous, on-policy, multi-agent
     on-policy, multi-agent, slice-6, slice-7, data-parallel, bench,
     per-bench, north-star, N=5 recipe, spread recipe, envelope recipe,
-    pixel recipe and GAIL recipe paths), the card
-    line, and the result line.
+    pixel recipe, GAIL recipe and the two walker recipes' paths), K2 and
+    K3 (with their launches on the CEM-GD3PG walker recipe, this slice's
+    main path, and on the PPO walker recipe); the card line, and the
+    result line.
 
 It needs no network, builds everything from the checkout, and leaves no
 process running when it exits, whether it passed or failed.
@@ -624,6 +649,282 @@ def phase_sumtree():
         "library_ms": library_ms,
         "library_call_ms": library_call_ms,
     }
+
+
+# ---------------------------------------------------------------------------
+# The walker's kernels, K2 (step) and K3 (reset): csrc/bipedal_step.cu
+# ---------------------------------------------------------------------------
+# the env counts the vector step is timed at: PPO's 8 (and CEM-GD3PG's 4 and
+# 10 rows in one block alike), the card-against-CPU phase's 256, and the
+# on-policy phase's 1,024
+WALKER_BATCHES = (8, 256, 1024)
+# the env counts K2 is held to the plain version at, teacher-forced: the
+# main path's (CEM-GD3PG's 4 fused lanes and 10 population rows, PPO's 8
+# envs; each a part of one 128-thread block) and two whole blocks; K3 at
+# the same small counts and at 1,024
+WALKER_STEP_CHECKS = (4, 8, 10, 256)
+WALKER_RESET_CHECKS = (4, 8, 10, 1024)
+
+
+def walker_rows(out) -> torch.Tensor:
+    """A step's or reset's outputs as one (B, fields) float tensor: the
+    state's fields, then the observation and the rest."""
+    state, *rest = out
+    return torch.cat([getattr(state, f.name).reshape(state.pos.shape[0], -1)
+                      .float() for f in dataclasses.fields(state)]
+                     + [x.reshape(state.pos.shape[0], -1).float()
+                        for x in rest], 1)
+
+
+def lidar_samples(obs: torch.Tensor) -> int:
+    """The lidar samples the rows' observations needed: a ray whose first
+    sample at or below the ground is k took k + 1 (its reading is
+    (k + 1) / 24), one with none all 24 (reading 1)."""
+    return int(torch.round(obs[:, 14:24].double() * 24).sum())
+
+
+def walker_terrain_reads(state, action) -> int:
+    """The terrain floats K2 reads for these rows' step, each distinct one
+    counted once a row: both ends of every segment the step looks up,
+    taken from the plain version's lookups on the CPU from the same state
+    and action. These are each contact's at the start and in every
+    position iteration, the hull's, and the observation's 8 foot contacts,
+    as the kernel makes them; and each lidar sample's up to its ray's
+    first at or below the ground, where the kernel stops (the plain
+    version looks up all 240)."""
+    from freerl_tpu_torch.envs import bipedal as w
+
+    seen = []
+
+    class Traced(w.BipedalWalker):
+        observing = False
+        lidar = None
+
+        def observation(self, state):
+            self.observing = True
+            try:
+                return super().observation(state)
+            finally:
+                self.observing = False
+
+        def _segment(self, x):
+            i, frac = w.BipedalWalker._segment(x)
+            if x.shape[-1] == 10 * w._LIDAR_SAMPLES:
+                self.lidar = i
+            elif self.observing and x.shape[-1] == w.N_CONTACT:
+                seen.extend([i[:, w._FOOT_L], i[:, w._FOOT_R]])
+            else:
+                seen.append(i)
+            return i, frac
+
+    env = Traced("cpu")
+    new, *_ = env._step_ref(to_device(state, "cpu"), action.cpu())
+    # the samples each ray needs: those with none at or below the ground
+    # before them
+    px = new.pos[:, 0, 0:1] + env.lidar_dx
+    py = new.pos[:, 0, 1:2] + env.lidar_dy
+    below = (py <= w.BipedalWalker._terrain_height(env, new.terrain, px))
+    below = below.reshape(-1, 10, w._LIDAR_SAMPLES).int()
+    need = (torch.cumsum(below, -1) - below) == 0
+    lidar = env.lidar.reshape(need.shape)
+    seen.append(torch.where(need, lidar, lidar[..., :1]).flatten(1))
+    read = torch.zeros(new.terrain.shape, dtype=torch.bool)
+    for i in seen:
+        read.scatter_(1, i, True)
+        read.scatter_(1, i + 1, True)
+    return int(read.sum())
+
+
+def walker_step_bytes(n: int, terrain_reads: int) -> int:
+    """The bytes K2 must move for n rows: each row's state (the step's
+    output fields before the observation) and t, and its action in, with
+    ``terrain_reads`` terrain floats in all (``walker_terrain_reads``);
+    the output fields, t and two flags out."""
+    from freerl_tpu_torch.ops import bipedal as kern
+
+    off = kern.out_offsets(kern.STEP_OUT)
+    row = (off["obs"] + 1 + 4) * 4 + off["total"] * 4 + 4 + 2
+    return n * row + 4 * terrain_reads
+
+
+def walker_reset_bytes(n: int) -> int:
+    """The bytes K3 must move for n rows: each row's 210-float draw in; its
+    terrain, start state, observation and t out."""
+    from freerl_tpu_torch.ops import bipedal as kern
+
+    return n * (210 * 4 + kern.out_offsets(kern.RESET_OUT)["total"] * 4 + 4)
+
+
+def walker_bound(n_bytes: float, n_ops: float) -> tuple:
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def walker_teacher_forced(cpu, card, plain, b: int, steps: int = 100,
+                          seed: int = 0) -> tuple:
+    """K2 through ``step_auto_reset`` against the plain version on the
+    card, ``b`` envs x ``steps`` steps, each from the plain version's state,
+    with the CPU phase's draws: (row-steps past rtol 1e-5 / atol 2e-5, the
+    worst abs err, done flags that differ)."""
+    from freerl_tpu_torch.envs import step_auto_reset, vec_reset
+
+    gen = torch.Generator().manual_seed(seed)
+    state, _ = vec_reset(cpu, gen, b)
+    state = to_device(state, "cuda")
+    flips, stiff, worst = 0, 0, 0.0
+    fields = ("next_obs", "carry_obs", "reward")
+    for _ in range(steps):
+        action = (torch.rand(b, 4, generator=gen) * 2.0 - 1.0).cuda()
+        reset_draw = cpu.draw_reset(b, gen).cuda()
+        want = step_auto_reset(plain, state, action, None, reset_draw)
+        got = step_auto_reset(card, state, action, None, reset_draw)
+        same = want.episode_done == got.episode_done
+        flips += int((~same).sum())
+        a, c = (torch.cat(
+            [getattr(out, f).reshape(b, -1) for f in fields]
+            + [getattr(out.state, f.name).reshape(b, -1).float()
+               for f in dataclasses.fields(out.state)], 1)[same].cpu()
+            for out in (want, got))
+        err = (a - c).abs()
+        stiff += int((~(err <= 2e-5 + 1e-5 * a.abs()).all(1)).sum())
+        worst = max(worst, float(err.max()))
+        state = want.state
+    return stiff, worst, flips
+
+
+def phase_bipedal_kernel() -> list:
+    """K3 against the plain version (``_reset_ref``) at each of
+    ``WALKER_RESET_CHECKS`` rows from the same draws: on the CPU, bit for
+    bit in the terrain and within rtol 1e-5 / atol 2e-5 everywhere (the
+    same float32 operations; only the contact flags read cos and sin); K2
+    through ``step_auto_reset`` against the plain version on the card at
+    each of ``WALKER_STEP_CHECKS`` envs x 100 teacher-forced steps, with
+    the CPU phase's draws and rule, at each count on its own
+    (``phase_card_vs_cpu_onpolicy``: rtol 1e-5 / atol 2e-5 on every
+    row-step, at most 0.5% past it and none past 5e-3, at most 0.1% of
+    done flags flipped). Then, at each of ``WALKER_BATCHES``, the kernels'
+    and the plain version's device times (CUDA graphs), the launch floor,
+    the vector step as the loops call it (``step_auto_reset``, eager, host
+    included) with the kernels and with the plain version, and each one's
+    kernels a vector step (profiled). Returns K2's and K3's kernel records
+    (their launches come from the main path's run)."""
+    from freerl_tpu_torch.envs import step_auto_reset
+    from freerl_tpu_torch.envs.bipedal import BipedalWalker
+    from freerl_tpu_torch.ops import bipedal as kern
+
+    class Plain(BipedalWalker):
+        """The walker whose step and reset are the plain version on any
+        device."""
+
+        def step(self, state, action, step_draw=None):
+            return self._step_ref(state, action)
+
+        def reset(self, draw):
+            return self._reset_ref(draw)
+
+    cpu, card, plain = (BipedalWalker("cpu"), BipedalWalker("cuda"),
+                        Plain("cuda"))
+    reset_err, reset_card_err = 0.0, 0.0
+    for n in WALKER_RESET_CHECKS:
+        draw = cpu.draw_reset(n, torch.Generator().manual_seed(n))
+        got = card.reset(draw.cuda())
+        want = cpu.reset(draw)
+        if not torch.equal(got[0].terrain.cpu(), want[0].terrain):
+            raise AssertionError(f"bipedal_reset on {n} rows: terrain "
+                                 f"differs from the plain version's on the "
+                                 f"CPU")
+        a, c = walker_rows(want), walker_rows(got).cpu()
+        err = float((a - c).abs().max())
+        if not bool(((a - c).abs() <= 2e-5 + 1e-5 * a.abs()).all()):
+            raise AssertionError(f"bipedal_reset on {n} rows against the "
+                                 f"plain version: max abs err {err}")
+        reset_err = max(reset_err, err)
+        reset_card_err = max(reset_card_err, float(
+            (walker_rows(plain.reset(draw.cuda()))
+             - walker_rows(got)).abs().max()))
+
+    steps, step_err, parts = 100, 0.0, []
+    for b in WALKER_STEP_CHECKS:
+        stiff, worst, flips = walker_teacher_forced(cpu, card, plain, b,
+                                                    steps)
+        if (stiff > 0.005 * b * steps or worst > 5e-3
+                or flips > 0.001 * b * steps):
+            raise AssertionError(
+                f"bipedal_step on {b} envs against the plain version: "
+                f"{stiff} stiff row-steps (worst {worst}), {flips} done "
+                f"flags differ")
+        step_err = max(step_err, worst)
+        parts.append(f"{b} envs {stiff} of {b * steps} row-steps past "
+                     f"rtol 1e-5 / atol 2e-5 (worst {worst:.3e}), {flips} "
+                     f"done flags differ")
+    log(f"[bipedal kernel] K3 == the plain version on the CPU on "
+        f"{' / '.join(map(str, WALKER_RESET_CHECKS))} rows (terrain "
+        f"bit-equal, max abs err {reset_err:.3e}; against the plain version "
+        f"on the card {reset_card_err:.3e}); K2 through step_auto_reset, "
+        f"{steps} teacher-forced steps against the plain version on the "
+        f"card: {'; '.join(parts)}")
+
+    # times at each env count
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for n in WALKER_BATCHES:
+        st, obs = card.reset(card.draw_reset(n, gen))
+        act = torch.rand(n, 4, generator=gen, device="cuda") * 2.0 - 1.0
+        rdraw = card.draw_reset(n, gen)
+        _, obs1, *_ = card.step(st, act)
+        rec = dict(
+            k2_ms=device_ms(lambda: card.step(st, act)),
+            k3_ms=device_ms(lambda: card.reset(rdraw)),
+            floor_ms=device_ms(kern.floor_launcher(n)),
+            k2_plain_ms=device_ms(lambda: plain.step(st, act), calls=2,
+                                  replays=3),
+            k3_plain_ms=device_ms(lambda: plain.reset(rdraw), calls=1,
+                                  replays=3),
+            vector_step_ms=eager_ms(
+                lambda: step_auto_reset(card, st, act, None, rdraw), 100),
+            plain_vector_step_ms=eager_ms(
+                lambda: step_auto_reset(plain, st, act, None, rdraw), 3))
+        for name, env in (("kernels", card), ("plain", plain)):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step_auto_reset(env, st, act, None, rdraw)
+                torch.cuda.synchronize()
+            rec[f"{name}_launches"] = len(device_kernels(prof))
+        rec["terrain_reads"] = walker_terrain_reads(st, act)
+        rec["k2_bound"] = walker_bound(
+            walker_step_bytes(n, rec["terrain_reads"]),
+            n * kern.STEP_OPS + kern.LIDAR_SAMPLE_OPS * lidar_samples(obs1))
+        rec["k3_bound"] = walker_bound(
+            walker_reset_bytes(n),
+            n * kern.RESET_OPS + kern.LIDAR_SAMPLE_OPS * lidar_samples(obs))
+        times[n] = rec
+        log(f"[bipedal kernel] {n} envs: K2 {rec['k2_ms']:.6f} ms, K3 "
+            f"{rec['k3_ms']:.6f} ms (device, graph; bounds "
+            f"{rec['k2_bound'][0]:.7f} ms by {rec['k2_bound'][1]}, K2 "
+            f"reading {rec['terrain_reads'] / n:.1f} terrain floats a row, "
+            f"/ {rec['k3_bound'][0]:.7f} ms by {rec['k3_bound'][1]}), "
+            f"empty-kernel floor "
+            f"{rec['floor_ms']:.6f} ms; plain version K2 "
+            f"{rec['k2_plain_ms']:.4f} ms, K3 {rec['k3_plain_ms']:.4f} ms; "
+            f"step_auto_reset as the loops call it {rec['vector_step_ms']:.4f} "
+            f"ms with the kernels ({rec['kernels_launches']} kernels), "
+            f"{rec['plain_vector_step_ms']:.4f} ms with the plain version "
+            f"({rec['plain_launches']} kernels)")
+    main = times[WALKER_BATCHES[0]]
+    common = dict(route="cuda", source="freerl_tpu_torch/csrc/bipedal_step.cu",
+                  library_ms=None, batch=WALKER_BATCHES[0],
+                  floor_ms=main["floor_ms"], times=times)
+    return [
+        dict(name="bipedal_step", replaces="freerl_tpu/envs/bipedal.py:287",
+             max_abs_err=step_err, ms=main["k2_ms"],
+             plain_ms=main["k2_plain_ms"], bound_ms=main["k2_bound"][0],
+             bound_by=main["k2_bound"][1], **common),
+        dict(name="bipedal_reset", replaces="freerl_tpu/envs/bipedal.py:185",
+             max_abs_err=reset_err, ms=main["k3_ms"],
+             plain_ms=main["k3_plain_ms"], bound_ms=main["k3_bound"][0],
+             bound_by=main["k3_bound"][1], **common)]
 
 
 # ---------------------------------------------------------------------------
@@ -2863,6 +3164,100 @@ def phase_cem() -> int:
     return launches
 
 
+# the learner steps of ``phase_cem_graph``'s bursts: (is_f1_more, delta,
+# steps), both branches, and the first branch again from its kept graph
+CEM_GRAPH_BURSTS = ((True, 0.37, 70), (False, 0.81, 60), (True, 0.52, 70))
+
+
+def phase_cem_graph() -> dict:
+    """CEM-GD3PG's learner burst as a CUDA graph (``BurstGraph``) against
+    the eager loop on the card, at scripts/r5_cem_bipedal.py's config
+    (2x128, batch 256, replay 1e6) on the walker's widths: two states from
+    one init, the same two replay rings (20,000 random rows each) and the
+    same indices, 200 learner steps in ``CEM_GRAPH_BURSTS`` (both branches
+    of ``is_f1_more``, then a graph replayed as kept), the domain actor a
+    scaled copy so the guidance term is live. Every parameter of the
+    seven nets and every Adam moment and step count must be bit-equal:
+    the graph replays the eager step's own kernels. Returns the ms a
+    learner step takes both ways (CUDA events, the last burst)."""
+    from freerl_tpu_torch.algos import CEMGD3PG, CEMGD3PGConfig
+    from freerl_tpu_torch.buffers import ReplayBuffer
+    from freerl_tpu_torch.core.types import Transition
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import golden
+
+    di = make("BipedalWalker-v3", device="cuda").dim_info
+    cfg = CEMGD3PGConfig(**golden.CEM_BIPEDAL_RUNS["CEM_GD3PG_4_seed"][2])
+    algos = {way: CEMGD3PG(di, cfg, device="cuda")
+             for way in ("graph", "eager")}
+    states = {way: a.init(torch.Generator(device="cuda").manual_seed(0))
+              for way, a in algos.items()}
+    dom = algos["eager"].get_params(states["eager"].actor2) * 0.7
+    for way, a in algos.items():
+        a.set_params(states[way].domain, dom)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = 20_000
+
+    def ring():
+        def r(*shape):
+            return torch.randn((rows,) + shape, generator=gen, device="cuda")
+        done = torch.rand(rows, generator=gen, device="cuda") < 0.05
+        buf = ReplayBuffer.create(cfg.buffer_size, Transition(
+            obs=torch.zeros(24, device="cuda"),
+            action=torch.zeros(4, device="cuda"),
+            reward=torch.zeros((), device="cuda"),
+            next_obs=torch.zeros(24, device="cuda"),
+            done=torch.zeros((), dtype=torch.bool, device="cuda"),
+            episode_done=torch.zeros((), dtype=torch.bool, device="cuda")))
+        return buf.add(Transition(obs=r(24), action=torch.tanh(r(4)),
+                                  reward=r(), next_obs=r(24), done=done,
+                                  episode_done=done))
+
+    buffers = (ring(), ring())
+    half_b = cfg.batch_size // 2
+    ms = {}
+    for is_f1_more, delta, n in CEM_GRAPH_BURSTS:
+        idx = tuple(torch.randint(0, rows, (n, half_b), generator=gen,
+                                  device="cuda") for _ in range(2))
+        for way, a in algos.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            a.learn_burst(states[way], *buffers, idx, is_f1_more, delta,
+                          graph=way == "graph")
+            end.record()
+            end.synchronize()
+            ms[way] = start.elapsed_time(end) / n
+
+    def tensors(st):
+        nets = [getattr(st, f) for f in ("actor1", "actor2", "actor1_target",
+                                         "actor2_target", "domain", "critic",
+                                         "critic_target")]
+        opts = (st.actor1_opt, st.actor2_opt, st.critic_opt)
+        return [p.detach() for net in nets for p in net.parameters()] + [
+            v for o in opts for pst in o.state.values()
+            for k, v in sorted(pst.items()) if torch.is_tensor(v)]
+
+    g, e = tensors(states["graph"]), tensors(states["eager"])
+    differ = [i for i, (x, y) in enumerate(zip(g, e)) if not torch.equal(x, y)]
+    steps = sum(n for _, _, n in CEM_GRAPH_BURSTS)
+    kept = algos["graph"].__dict__.get("_burst_graph")
+    if (len(g) != len(e) or differ or states["graph"].step != steps
+            or states["eager"].step != steps or kept is None
+            or sorted(kept.graphs) != [False, True]):
+        raise AssertionError(f"cem graph: {len(differ)} of {len(g)} tensors "
+                             f"differ from the eager loop's after {steps} "
+                             f"learner steps (steps {states['graph'].step} / "
+                             f"{states['eager'].step})")
+    log(f"[cem graph] {steps} learner steps in {len(CEM_GRAPH_BURSTS)} bursts "
+        f"(both branches, one graph each, replayed as kept): params and Adam "
+        f"moments bit-equal to the eager loop's ({len(g)} tensors, "
+        f"{sum(t.numel() for t in g)} elements); a learner step "
+        f"{ms['graph']:.4f} ms from the graph, {ms['eager']:.4f} ms eager "
+        f"(CUDA events, the last burst)")
+    return dict(graph_ms=ms["graph"], eager_ms=ms["eager"], steps=steps)
+
+
 def phase_envelope() -> int:
     """ENVELOPE through ``train_offpolicy`` on deep-sea-treasure-v0 with
     ``EnvelopeConfig()``'s defaults (2x256, batch 256, buffer 100k,
@@ -3690,7 +4085,8 @@ def phase_learning_block() -> dict:
     state (the phases after the block then get the states a serial run
     would have left them). Returns the sum-tree launches of the on-policy
     checks and phases and of the multi-agent checks ("onpolicy", "marl")
-    and of each table of recipes (its name in ``RECIPE_TABLES``)."""
+    and of each table of recipes (its name in ``RECIPE_TABLES``), and under
+    "walker" each walker recipe's K2 and K3 launches, by its tag."""
     from freerl_tpu_torch.train import golden
 
     tables = {tag: name for name, table, _ in RECIPE_TABLES
@@ -3709,6 +4105,9 @@ def phase_learning_block() -> dict:
                   or LEARNING_CHECKS.get(name, {}).get("driver"))
         if driver in launches:
             launches[driver] += rec["out"]["launches"]
+        if "k2" in rec["out"]:
+            launches.setdefault("walker", {})[name] = (rec["out"]["k2"],
+                                                       rec["out"]["k3"])
         if name in tables and rec["seconds"] > N5_TIMEOUT_S:
             late[name] = rec["seconds"]
         if rec["moved"]:
@@ -4884,12 +5283,136 @@ def gail_recipe(tag: str, device: str = "cuda") -> dict:
     return dict(launches=launches, seconds=seconds, line=line)
 
 
-# each table of recipes, by the name of its launches, and the recipe of it
+def walker_count(run, device: str = "cuda"):
+    """``run()`` with the sum-tree kernel's (B1's) and the walker kernels'
+    (K2's, K3's) counts set to 0 just before and read just after: (its
+    result, B1's, K2's and K3's launches, seconds)."""
+    from freerl_tpu_torch.ops import bipedal
+
+    def counted():
+        bipedal.step_launches = bipedal.reset_launches = 0
+        out = run()
+        return out, bipedal.step_launches, bipedal.reset_launches
+
+    (out, k2, k3), launches, seconds = sumtree_count(counted, device)
+    return out, launches, k2, k3, seconds
+
+
+# how ``cem_bipedal_recipe`` cuts scripts/r5_cem_bipedal.py's draw: the
+# first ES generation (10 episodes) and two more, the first of them opened
+# by a tell / ask, a population evaluation and the elite mixed in
+CEM_SMOKE_EPISODES = 12
+
+
+def cem_bipedal_recipe(tag: str, device: str = "cuda") -> dict:
+    """The draw of ``golden.CEM_BIPEDAL_RUNS`` on ``device``, cut in depth:
+    ``scripts/torch_r5_cem_bipedal.train``, the function each draw of the
+    script runs (the walker under ``FixedResetWrapper(seed=0)``, batch
+    256, replay 1e6, one learner step per domain env step past 1,000 env
+    steps), for ``CEM_SMOKE_EPISODES`` episodes of draw 0. The returns
+    must be finite and in the walker's range, the learner must have taken
+    one step per burst row, from the CUDA graph of both bursts it kept on
+    the card, the walker must have stepped through its kernels (K2 once a
+    vector step, K3 at every auto-reset step and rollout start) and no
+    sum-tree kernel may launch (uniform replay). Returns B1's, K2's and
+    K3's launches, the seconds and a line to log."""
+    from freerl_tpu_torch.algos import CEMGD3PG
+    from scripts import torch_r5_cem_bipedal as cem
+
+    learns, graphs = [], set()
+
+    class Counted(CEMGD3PG):
+        def learn_burst(self, state, buffer, buffer_domain, idx, *args,
+                        **kw):
+            learns.append(len(idx[0]))
+            state = super().learn_burst(state, buffer, buffer_domain, idx,
+                                        *args, **kw)
+            kept = self.__dict__.get("_burst_graph")
+            graphs.update(kept.graphs if kept is not None else ())
+            return state
+
+    r, launches, k2, k3, seconds = walker_count(
+        lambda: cem.train(0, device, algo_cls=Counted,
+                          max_episodes=CEM_SMOKE_EPISODES), device)
+    returns, info, state = r["returns"], r["info"], r["state"]
+    if not (len(returns) == CEM_SMOKE_EPISODES
+            and np.isfinite(returns).all() and returns.min() >= -400.0
+            and returns.max() <= 400.0 and learns
+            and state.step == sum(learns)):
+        raise AssertionError(f"{tag}: returns {returns}, {state.step} "
+                             f"learner steps for bursts {learns}, {info}")
+    if device == "cuda" and not (graphs and k2 and k3 >= k2):
+        raise AssertionError(f"{tag}: graphs {graphs}, K2 {k2} and K3 {k3} "
+                             f"launches")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[cem_bipedal {tag}] scripts/torch_r5_cem_bipedal.py's draw 0 "
+            f"for {CEM_SMOKE_EPISODES} episodes: {info['env_steps']} env "
+            f"steps, {state.step} learner steps in {len(learns)} bursts "
+            f"(CUDA graphs of branches {sorted(graphs)}), returns "
+            f"{returns.min():.1f} .. {returns.max():.1f}; K2 {k2} and K3 {k3} "
+            f"launches, sumtree launches {launches}, {seconds:.1f} s")
+    return dict(launches=launches, k2=k2, k3=k3, seconds=seconds, line=line)
+
+
+# how ``ppo_bipedal_recipe`` cuts scripts/r5_singles.py's PPO walker run:
+# its first seed for this many updates of 2,048 transitions
+PPO_WALKER_SMOKE_ITERS = 3
+
+
+def ppo_bipedal_recipe(tag: str, device: str = "cuda") -> dict:
+    """scripts/r5_singles.py's PPO BipedalWalker run (``golden.R5_RUNS``'s
+    tag: 8 envs, horizon 2048, ``--fixed_reset``) on ``device``, cut in
+    depth: the env and the algo the port's CLI builds from the tag's argv
+    at its first seed, trained by ``train_onpolicy`` for
+    ``PPO_WALKER_SMOKE_ITERS`` updates. It must take that many updates and
+    env steps, its returns must be finite and in the walker's range, K2
+    must launch once a vector step and K3 at least as often, and no
+    sum-tree kernel may launch. Returns B1's, K2's and K3's launches, the
+    seconds and a line to log."""
+    from freerl_tpu_torch import cli
+    from freerl_tpu_torch.train import OnPolicyConfig, golden, train_onpolicy
+
+    argv = golden.r5_argv(tag, golden.R5_RUNS[tag][3][0])
+    args = cli.parser().parse_args(argv + ["--device", device])
+    env, algo = cli.build(args)
+    steps = PPO_WALKER_SMOKE_ITERS * args.horizon
+    cfg = OnPolicyConfig(seed=args.seed, num_envs=args.num_envs,
+                         max_episodes=10**9, horizon=args.horizon,
+                         max_env_steps=steps, host_sync_every=1)
+    (_, returns, info), launches, k2, k3, seconds = walker_count(
+        lambda: train_onpolicy(env, algo, cfg), device)
+    returns = np.asarray(returns)
+    vector_steps = steps // args.num_envs
+    if not (info["iterations"] == PPO_WALKER_SMOKE_ITERS
+            and info["env_steps"] == steps and np.isfinite(returns).all()
+            and (not len(returns) or (returns.min() >= -400.0
+                                      and returns.max() <= 400.0))):
+        raise AssertionError(f"{tag}: returns {returns}, {info}")
+    if device == "cuda" and not (k2 == vector_steps and k3 >= k2):
+        raise AssertionError(f"{tag}: K2 {k2} and K3 {k3} launches for "
+                             f"{vector_steps} vector steps")
+    if launches:
+        raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    line = (f"[ppo_bipedal {tag}] {' '.join(argv)}: {info['iterations']} "
+            f"updates, {info['env_steps']} env steps, {len(returns)} "
+            f"episodes"
+            + (f" (returns {returns.min():.1f} .. {returns.max():.1f})"
+               if len(returns) else "")
+            + f"; K2 {k2} and K3 {k3} launches for {vector_steps} vector "
+            f"steps, sumtree launches {launches}, {seconds:.1f} s")
+    return dict(launches=launches, k2=k2, k3=k3, seconds=seconds, line=line)
+
+
+# each table of recipes, by the name of its launches, the ``golden``
+# attribute holding its tags, and the recipe of it
 RECIPE_TABLES = (("n5", "N5_RUNS", n5_recipe),
                  ("spread", "SPREAD_RUNS", spread_recipe),
                  ("envelope", "ENVELOPE_RUNS", envelope_recipe),
                  ("pixel", "PIXEL_RUNS", pixel_recipe),
-                 ("gail", "GAIL_RUNS", gail_recipe))
+                 ("gail", "GAIL_RUNS", gail_recipe),
+                 ("cem_bipedal", "CEM_BIPEDAL_RUNS", cem_bipedal_recipe),
+                 ("ppo_bipedal", "R5_WALKER", ppo_bipedal_recipe))
 
 
 def recipe(tag: str, device: str = "cuda") -> dict:
@@ -4953,6 +5476,7 @@ def main() -> int:
 
     timed("build", phase_build)
     kernel = timed("sumtree", phase_sumtree)
+    walker = timed("bipedal kernel", phase_bipedal_kernel)
     timed("card-vs-cpu", phase_card_vs_cpu)
     timed("card-vs-cpu family", phase_card_vs_cpu_family)
     kernel["launches"] = timed("main PER tree", phase_main_path, "PER tree",
@@ -4979,6 +5503,7 @@ def main() -> int:
         timed(name, fn) for name, fn in (
             ("gail", phase_gail), ("cem", phase_cem),
             ("envelope", phase_envelope), ("pixel", phase_pixel)))
+    cem_graph = timed("cem graph", phase_cem_graph)
     if kernel["launches_slice6"]:
         raise AssertionError(f"the slice-6 paths launched the sum-tree "
                              f"kernel {kernel['launches_slice6']} times")
@@ -4998,6 +5523,15 @@ def main() -> int:
     kernel["launches_marl"] += block["marl"]
     for name, _, _ in RECIPE_TABLES:
         kernel[f"launches_{name}"] = block[name]
+    # K2 and K3 on this slice's main path, the CEM-GD3PG walker draw, and
+    # on the PPO walker run
+    for rec, i in zip(walker, (0, 1)):
+        rec["launches"] = block["walker"]["CEM_GD3PG_4_seed"][i]
+        rec["launches_ppo_bipedal"] = block["walker"]["PPO_BipedalWalker"][i]
+        if not (rec["launches"] and rec["launches_ppo_bipedal"]):
+            raise AssertionError(f"{rec['name']} was not launched on the "
+                                 f"walker paths: {block['walker']}")
+    walker[0]["cem_graph"] = cem_graph
     kernel["launches_bench"] = timed("bench", phase_bench)
     kernel["launches_per_bench"] = timed("per bench", phase_per_bench)
     kernel["launches_northstar"] = timed("northstar", phase_northstar)
@@ -5010,7 +5544,7 @@ def main() -> int:
                              f"killed: {left}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, *walker]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -34,6 +34,16 @@ Every draw is an argument: ``eval_population`` and the fused episode take
 their env and noise draws, ``learn_burst`` its replay indices, all made by
 a :class:`CEMDraws` from a ``torch.Generator``; the ES draws from its
 ``np.random.RandomState``.
+
+**The learner burst on the card** is one learner step captured in a CUDA
+graph and replayed once per index row, PyTorch's counterpart of the JAX
+package's ``fori_loop`` under ``jit``: the row's indices go in through
+static device buffers and each actor's guidance factor through a device
+scalar filled once a burst, one graph for each branch of ``is_f1_more``.
+On the card the optimizers are Adam with ``capturable=True``, on the
+graph and the eager path alike, so the graph replays the eager step's own
+kernels (``learn_burst(..., graph=False)`` is its twin); the CPU runs the
+eager loop.
 """
 from __future__ import annotations
 
@@ -143,7 +153,10 @@ class CEMGD3PG:
                          "torch", generator, self.device)
 
         def adam(net, lr):
-            return torch.optim.Adam(net.parameters(), lr=lr, eps=1e-8)
+            # capturable on the card: the step count lives on the device,
+            # so the learner step can be replayed from a CUDA graph
+            return torch.optim.Adam(net.parameters(), lr=lr, eps=1e-8,
+                                    capturable=self.device.type == "cuda")
 
         return CEMGD3PGState(
             actor1=a1, actor2=a2, actor1_target=frozen_copy(a1),
@@ -254,11 +267,29 @@ class CEMGD3PG:
         return acc.ret, acc.trans
 
     # ------------------------------------------------------------------
+    def factors(self, is_f1_more: bool, delta: float) -> tuple:
+        """Each actor's weight on its guidance term, as float32 values:
+        ``lambda * delta`` for the weaker actor (actor1 when f2 is the
+        stronger), 0 for the stronger."""
+        delta = np.float32(delta)
+        return tuple(float(np.float32(guided * self.cfg.lambda_) * delta)
+                     for guided in ((0.0, 1.0) if is_f1_more else (1.0, 0.0)))
+
     def learn(self, state: CEMGD3PGState, batch: Transition,
               is_f1_more: bool, delta: float):
         """One gradient step, in place: the critic, then both actors (the
         weaker one guided toward the domain policy), then the three
         targets. Returns (state, metrics)."""
+        closs = self._learn_step(state, batch,
+                                 self.factors(is_f1_more, delta))
+        state.step += 1
+        return state, {"critic_loss": closs.detach()}
+
+    def _learn_step(self, state: CEMGD3PGState, batch: Transition,
+                    factors: tuple) -> torch.Tensor:
+        """``learn``'s step with the actors' guidance weights ``factors``
+        (floats, or device scalars under a CUDA graph). Returns the critic
+        loss."""
         cfg = self.cfg
         reward = batch.reward.reshape(-1)
         done = batch.done.reshape(-1).to(torch.float32)
@@ -277,19 +308,17 @@ class CEMGD3PG:
                                         - target))
         optimizer_step(state.critic_opt, critic_params, closs, 0.5)
 
-        delta = np.float32(delta)
-        # actor1 is guided when f2 is the stronger, actor2 when f1 is
-        for actor, opt, guided in ((state.actor1, state.actor1_opt,
-                                    0.0 if is_f1_more else 1.0),
+        for actor, opt, factor in ((state.actor1, state.actor1_opt,
+                                    factors[0]),
                                    (state.actor2, state.actor2_opt,
-                                    1.0 if is_f1_more else 0.0)):
+                                    factors[1])):
             a = actor(batch.obs)
             q = torch.mean(state.critic(batch.obs, a))
             gap = a - domain_a
             # eps keeps the sqrt's gradient finite where the actor IS the
             # domain policy
             kl = torch.sqrt(torch.sum(gap * gap) / gap.shape[0] + 1e-8)
-            loss = -q + float(np.float32(guided * cfg.lambda_) * delta) * kl
+            loss = -q + factor * kl
             optimizer_step(opt, list(actor.parameters()), loss, 0.5)
 
         polyak(state.actor1_target.parameters(), state.actor1.parameters(),
@@ -297,21 +326,127 @@ class CEMGD3PG:
         polyak(state.actor2_target.parameters(), state.actor2.parameters(),
                cfg.tau)
         polyak(state.critic_target.parameters(), critic_params, cfg.tau)
-        state.step += 1
-        return state, {"critic_loss": closs.detach()}
+        return closs
 
     def learn_burst(self, state: CEMGD3PGState, buffer: ReplayBuffer,
                     buffer_domain: ReplayBuffer, idx: tuple, is_f1_more,
-                    delta):
+                    delta, graph: Optional[bool] = None):
         """``len(idx[0])`` learner steps; step i's batch is rows
         ``idx[0][i]`` of ``buffer`` then rows ``idx[1][i]`` of
-        ``buffer_domain``."""
+        ``buffer_domain``. On the card (``graph`` None or True) the steps
+        replay a CUDA graph of one step (:class:`BurstGraph`);
+        ``graph=False``, and the CPU, run them one by one."""
+        if graph is None:
+            graph = self.device.type == "cuda"
+        if graph:
+            if self.device.type != "cuda":
+                raise ValueError("learn_burst: a CUDA graph needs the card")
+            runner = self.__dict__.get("_burst_graph")
+            if runner is None:
+                runner = self._burst_graph = BurstGraph(self)
+            return runner.run(state, buffer, buffer_domain, idx, is_f1_more,
+                              delta)
         for i1, i2 in zip(*idx):
-            b1, b2 = buffer.gather(i1), buffer_domain.gather(i2)
-            batch = Transition(**{
-                f.name: torch.cat([getattr(b1, f.name), getattr(b2, f.name)])
-                for f in dataclasses.fields(Transition)})
-            state, _ = self.learn(state, batch, is_f1_more, delta)
+            state, _ = self.learn(state, burst_batch(buffer, buffer_domain,
+                                                     i1, i2),
+                                  is_f1_more, delta)
+        return state
+
+
+def burst_batch(buffer: ReplayBuffer, buffer_domain: ReplayBuffer,
+                i1: torch.Tensor, i2: torch.Tensor) -> Transition:
+    """A learner step's batch: rows ``i1`` of ``buffer``, then rows ``i2``
+    of ``buffer_domain``."""
+    b1, b2 = buffer.gather(i1), buffer_domain.gather(i2)
+    return Transition(**{
+        f.name: torch.cat([getattr(b1, f.name), getattr(b2, f.name)])
+        for f in dataclasses.fields(Transition)})
+
+
+class BurstGraph:
+    """CEM-GD3PG's learner step as a CUDA graph, one for each branch of
+    ``is_f1_more``, replayed once per index row of a burst.
+
+    The graph reads a row's indices from two static ``(half_b,)`` device
+    buffers and the actors' guidance weights from two device scalars
+    (``factors``, filled once a burst with the eager step's float32
+    values), and it reads and writes the state's nets, optimizer states
+    and the replay rings at the addresses they had when it was captured.
+    So a graph is kept only while those addresses hold (``_addresses``):
+    a new state, a ring that was reallocated or an optimizer whose state
+    was replaced is captured again, never read through a stale address.
+    A capture runs ``WARMUP`` real steps eagerly on a side stream first
+    (the optimizers' state and the libraries' handles are made there, as
+    CUDA graphs require); a burst too short for them runs them all so."""
+
+    WARMUP = 3
+
+    def __init__(self, algo: CEMGD3PG):
+        self.algo = algo
+        self.graphs: dict = {}          # is_f1_more -> (addresses, graph)
+        self.idx = None                  # static (half_b,) index buffers
+        self.factors = None              # static guidance weights
+
+    @staticmethod
+    def _addresses(state, buffer, buffer_domain) -> tuple:
+        nets = (state.actor1, state.actor2, state.actor1_target,
+                state.actor2_target, state.domain, state.critic,
+                state.critic_target)
+        opts = (state.actor1_opt, state.actor2_opt, state.critic_opt)
+        rings = [getattr(b.data, f.name) for b in (buffer, buffer_domain)
+                 for f in dataclasses.fields(Transition)]
+        return tuple(t.data_ptr() for t in [
+            *(p for net in nets for p in net.parameters()),
+            *(v for opt in opts for st in opt.state.values()
+              for v in st.values() if torch.is_tensor(v)), *rings])
+
+    def _step(self, state, buffer, buffer_domain) -> None:
+        self.algo._learn_step(
+            state, burst_batch(buffer, buffer_domain, *self.idx),
+            self.factors)
+
+    def run(self, state, buffer, buffer_domain, idx, is_f1_more, delta):
+        i1s, i2s = idx
+        n = len(i1s)
+        if n == 0:
+            return state
+        dev = self.algo.device
+        if self.idx is None or self.idx[0].shape != i1s.shape[1:]:
+            self.idx = (torch.zeros(i1s.shape[1:], dtype=torch.int64,
+                                    device=dev),
+                        torch.zeros(i2s.shape[1:], dtype=torch.int64,
+                                    device=dev))
+            self.factors = (torch.zeros((), device=dev),
+                            torch.zeros((), device=dev))
+            self.graphs.clear()
+        for f, v in zip(self.factors, self.algo.factors(is_f1_more, delta)):
+            f.fill_(v)
+        addresses = self._addresses(state, buffer, buffer_domain)
+        kept = self.graphs.get(is_f1_more)
+        graph = kept[1] if kept is not None and kept[0] == addresses else None
+        start = 0
+        if graph is None:
+            start = min(self.WARMUP, n)
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for r in range(start):
+                    self.idx[0].copy_(i1s[r])
+                    self.idx[1].copy_(i2s[r])
+                    self._step(state, buffer, buffer_domain)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if start < n:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    self._step(state, buffer, buffer_domain)
+                # the optimizers' state exists now: the addresses are final
+                self.graphs[is_f1_more] = (
+                    self._addresses(state, buffer, buffer_domain), graph)
+        for r in range(start, n):
+            self.idx[0].copy_(i1s[r])
+            self.idx[1].copy_(i2s[r])
+            graph.replay()
+        state.step += n
         return state
 
 

@@ -30,6 +30,12 @@ Every random draw is an argument: ``reset`` takes ``(B, 210)`` uniforms,
 the terrain walk's 200 steps in [-1, 1) and the ``(5, 2)`` spawn noise in
 +-1e-3; ``draw_reset`` makes them. The step draws nothing
 (``draw_step`` returns None), as the JAX step ignores its key.
+
+On the card, ``step`` and ``reset`` run the hand-written kernels of
+``ops/bipedal.py`` (``csrc/bipedal_step.cu``: each a row's whole step or
+reset in one thread, one launch for the batch); on the CPU they run the
+batched torch code above, ``_step_ref`` and ``_reset_ref``, which is the
+kernels' plain version.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
+from freerl_tpu_torch.ops import bipedal as kernels
 
 FPS = 50.0
 DT = 1.0 / FPS
@@ -372,6 +379,14 @@ class BipedalWalker(Env):
 
     # ------------------------------------------------------------------
     def reset(self, draw: torch.Tensor):
+        """The plain version for a CPU draw, the kernel K3 for a CUDA one."""
+        return kernels.reset(self, draw)
+
+    def step(self, state: WalkerState, action: torch.Tensor, step_draw=None):
+        """The plain version for CPU tensors, the kernel K2 for CUDA ones."""
+        return kernels.step(self, state, action)
+
+    def _reset_ref(self, draw: torch.Tensor):
         n = draw.shape[0]
         dev = self.device
         terrain = self._gen_terrain(draw[:, :TERRAIN_LENGTH])
@@ -422,7 +437,8 @@ class BipedalWalker(Env):
         ], dim=1)
 
     # ------------------------------------------------------------------
-    def step(self, state: WalkerState, action: torch.Tensor, step_draw=None):
+    def _step_ref(self, state: WalkerState, action: torch.Tensor,
+                  step_draw=None):
         """One 1/50 s step of the whole batch: warm start, 16 velocity
         iterations, integration, 6 position iterations, in the JAX
         version's Gauss-Seidel order (see ``_GROUPS`` and ``_PAIRS`` for

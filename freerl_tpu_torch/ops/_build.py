@@ -31,6 +31,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags of one source on top of NVCC_FLAGS: the walker's kernels follow their
+# plain version's float32 rounding, so no multiply-add is contracted there
+SOURCE_FLAGS = {"bipedal_step": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -93,7 +96,8 @@ def _build_stale(names: list[str]) -> dict[str, str]:
     procs = {}
     for name in names:
         tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o",
+               str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))

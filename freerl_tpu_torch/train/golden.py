@@ -1002,8 +1002,12 @@ R5_RUNS = {
     "DQN_FrozenLake": ("DQN", "FrozenLake-v1", "DQN", (0, 10, 100), _R5_DQN),
     "DQN_Taxi": ("DQN", "Taxi-v3", "DQN", (100,), _R5_DQN),
 }
-# waits for the walker's vector step (ROADMAP P2)
-R5_LATER = ("PPO_BipedalWalker",)
+# tags whose rows wait for the port (none since the walker's step and reset
+# run as kernels on the card, ``ops/bipedal.py``)
+R5_LATER = ()
+# the tag of R5_RUNS that trains on the walker: chip_smoke.py's
+# ``ppo_bipedal_recipe`` runs it
+R5_WALKER = ("PPO_BipedalWalker",)
 
 
 def r5_argv(tag: str, seed, num_envs: int = 8,
@@ -1021,9 +1025,11 @@ def r5_argv(tag: str, seed, num_envs: int = 8,
 
 # the JAX SPECS row whose gate a tag's rows take, where its stem is not the
 # one the JAX script writes: DDPG_discrete's gate is on the 3-draw stem,
-# FrozenLake's on the 10-seed sweep
+# FrozenLake's on the 10-seed sweep, the walker's on the 10 draws of the
+# same recipe (SPECS has no BipedalWalker PPO_3_seed row)
 _R5_GATE_STEM = {"DDPG_discrete_CartPole": "DDPG_discrete_3_seed",
-                 "DQN_FrozenLake": "DQN_10_seed"}
+                 "DQN_FrozenLake": "DQN_10_seed",
+                 "PPO_BipedalWalker": "PPO_10_seed"}
 
 
 def r5_rows(tag: str) -> List[ParityRow]:
@@ -1385,6 +1391,37 @@ def pixel_rows() -> List[ParityRow]:
                    **common)]
 
 
+# scripts/r5_cem_bipedal.py's recipe (its lines 44-79), verbatim: the row's
+# stem -> (env, the reset seed FixedResetWrapper pins, CEMGD3PGConfig's
+# arguments, train_cem_gd3pg's arguments but ``seed``, which is ``seed +
+# 1000 * run``). A seed of the row is a run (a draw): every draw trains on
+# the terrain seed 0 pins, with its own training seed
+CEM_BIPEDAL_RUNS = {"CEM_GD3PG_4_seed": (
+    "BipedalWalker-v3", 0, dict(batch_size=256, buffer_size=1_000_000),
+    dict(max_episodes=500, start_steps=1000, full_ratio=True))}
+
+
+def cem_bipedal_seed(run: int, seed: int = 0) -> int:
+    """The training seed of draw ``run``: ``seed + 1000 * run``, as the JAX
+    script seeds it."""
+    return seed + 1000 * run
+
+
+def cem_bipedal_rows() -> List[ParityRow]:
+    """scripts/r5_cem_bipedal.py's row: the port's 4 draws (runs 0-3)
+    against the JAX package's committed 4-draw stack, with SPECS'
+    gate of the stem (window 50, slack 300, floor -110.5, best draw);
+    stacked raw, one run of the port's script a draw."""
+    stem = "CEM_GD3PG_4_seed"
+    env = CEM_BIPEDAL_RUNS[stem][0]
+    spec = spec_of(env, stem)
+    return [parity_row(spec, ref_path=f"{env}/{stem}.npy", ref_paths=(),
+                       regen=("--run", "{seed}"), regen_seeds=(0, 1, 2, 3),
+                       smooth=False, pending=False, script="r5_cem_bipedal",
+                       note=f"r5_cem_bipedal.py over 4 draws; SPECS gate of "
+                            f"{env}/{stem} (best draw, floor {spec.floor})")]
+
+
 # scripts/gail_e2e.py's run (its lines 31-36): the gate of ``SCALAR_GATES``
 # its summary feeds -> the script's arguments at their defaults
 GAIL_RUNS = {"GAIL_Pendulum_eval": dict(
@@ -1499,7 +1536,7 @@ JAX_PARITY: List[GoldenSpec] = [
                seeds) for seeds in (DQN_LL_SEEDS48, DQN_LL_SEEDS96)] + [
     more_seeds(n5_rows("MAAC_N5")[1], DQN_LL_SEEDS16),
 ] + [row for tag in SPREAD_RUNS for row in spread_rows(tag)] + [
-    pixel_rows()[0]]
+    pixel_rows()[0]] + cem_bipedal_rows()
 
 # rows whose recipe the port runs and keeps, but that no gate holds yet:
 # their reference is not made. ENVELOPE's recipe in the JAX package at this
@@ -1522,9 +1559,13 @@ def recipe_row(key: str) -> GoldenSpec:
 # whose committed port result misses its gate, with the open fault of
 # ROADMAP's queue C that tracks each: such a row must read FAIL until the
 # fault is closed. C20: the port's scripts/gail_e2e.py seed 0 reads
-# gail_eval_avg -402.8 against the gate's -190.0 (the JAX package at this
-# commit reads -198.3 to -819.5 over its seeds 0-7 on the CPU,
-# results/torch/jax_head/gail/Pendulum-v1/)
+# gail_eval_avg -402.8 against the gate's -190.0; over seeds 0-7 a side
+# (the port's on the card, results/torch/gail/Pendulum-v1/; the JAX
+# package's at this commit on the CPU, results/torch/jax_head/gail/) the
+# port reads -88.7 to -402.8 (mean -153.3, 7 of 8 past the gate) against
+# -198.3 to -819.5 (mean -388.0, none), Mann-Whitney p 0.0030: the two
+# differ, so C20 stays open as a fault of the port
+# (scripts/torch_seed_spread.py --gail)
 OPEN_FAULTS: dict = {"GAIL_Pendulum_eval": "C20"}
 # rows whose seeds would train on another task in each package, each with
 # the reason: checked and printed, but held to nothing (neither a pass nor a
@@ -1797,18 +1838,24 @@ def update_provenance(root: str, env: str, seeds: Optional[dict] = None,
                       stacks: Optional[dict] = None) -> str:
     """Merge records into ``<root>/<env>/provenance.json``: ``seeds`` maps
     a kept seed file's name (``seed_file``) to how it was made, ``stacks``
-    a stem to the seed files it stacks. Returns the file's path."""
+    a stem to the seed files it stacks. The file is read and rewritten
+    under an exclusive ``flock``, so the seeds of one env that finish
+    together in processes of their own all keep their records. Returns
+    the file's path."""
+    import fcntl
     import json
 
     path = os.path.join(root, env, "provenance.json")
-    prov = {}
-    if os.path.isfile(path):
-        with open(path) as f:
-            prov = json.load(f)
-    prov.setdefault("seeds", {}).update(seeds or {})
-    prov.setdefault("stacks", {}).update(stacks or {})
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
+    with open(path, "a+") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        f.seek(0)
+        text = f.read()
+        prov = json.loads(text) if text.strip() else {}
+        prov.setdefault("seeds", {}).update(seeds or {})
+        prov.setdefault("stacks", {}).update(stacks or {})
+        f.seek(0)
+        f.truncate()
         json.dump(prov, f, indent=1, sort_keys=True)
     return path
 

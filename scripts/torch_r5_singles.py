@@ -14,8 +14,8 @@ and cut to the shortest, as the JAX script stacks them, under
 ``golden.OURS_ROOT`` (``results/torch/learning_curves/``, never the JAX
 package's ``results/learning_curves/``), then the parity gate over every
 row. Every tag runs, or those ``--only`` names, but those of
-``golden.R5_LATER`` (PPO on BipedalWalker, which waits for the walker's
-step), which the script refuses.
+``golden.R5_LATER`` (none since the walker's step and reset run as
+kernels on the card), which the script refuses.
 
 Every run takes 500 episodes with ``--fixed_reset``: each episode of a run
 starts from the state its seed pins, as the reference's training loops
@@ -45,8 +45,7 @@ def row_keys(tags) -> list:
         raise KeyError(f"unknown tags {unknown}")
     later = [t for t in tags if t in golden.R5_LATER]
     if later:
-        raise ValueError(f"{later} wait for the walker's vector step "
-                         f"(ROADMAP P2)")
+        raise ValueError(f"{later} wait for the port (golden.R5_LATER)")
     return [golden.row_key(golden.r5_rows(t)[0]) for t in tags]
 
 

@@ -4,6 +4,8 @@ the two trees' curves (numpy and scipy only).
     python3 scripts/torch_seed_spread.py [--env LunarLander-v2]
         [--stem DQN_16_seed] [--ours results/torch/learning_curves]
         [--ref results/torch/jax_head] [--below X]
+    python3 scripts/torch_seed_spread.py --committed --env BipedalWalker-v3
+        --stem CEM_GD3PG_4_seed
     python3 scripts/torch_seed_spread.py --greedy results/torch/c12_greedy.json
 
 Each side's ``<root>/<env>/provenance.json`` names, under ``stacks``, the
@@ -28,6 +30,22 @@ wrote and prints C12's rule over them (``greedy_rule``): the two-sided
 Mann-Whitney p of the per-seed rates, each side's best rate, and whether
 both parts hold (p >= 0.05, and the port's best at least JAX's best less
 the row's slack, 0.08).
+
+``--committed`` compares the port's stack ``<ours>/<env>/<stem>.npy``
+with the JAX package's committed stack of the same stem
+(``results/learning_curves/<env>/<stem>.npy``), both raw, one row a draw:
+each row's final-50 mean (``WINDOW``), both sides' means and the two-sided
+Mann-Whitney p (the CEM-GD3PG walker row, whose JAX draws have no
+``@jax_head`` counterpart yet).
+
+``--gail`` prints C20's rule over the GAIL runs each side keeps
+(``gail_rule``): every run under ``--gail_ours`` (``results/torch/gail``:
+the port's ``scripts/torch_gail_e2e.py`` runs, each dir's ``config.json``
+naming its seed, or a ``GAIL_seed_<s>`` dir) and under ``--gail_ref``
+(``results/torch/jax_head/gail``: the JAX package's, ``GAIL_seed_<s>``),
+each seed's ``gail_eval_avg``, both sides' means, the seeds past the gate
+(-190.0), and the two-sided Mann-Whitney p over the seeds both keep; the
+rule closes C20 where p >= 0.05 over at least 8 seeds a side.
 """
 from __future__ import annotations
 
@@ -99,6 +117,65 @@ def greedy_rule(port: list, jax: list, slack: float = GREEDY_SLACK) -> dict:
                 closes=test["p"] >= P_MIN and best_port >= best_jax - slack)
 
 
+GAIL_GATE = -190.0          # SCALAR_GATES' GAIL_Pendulum_eval floor
+GAIL_MIN_SEEDS = 8
+
+
+def gail_evals(root: str) -> dict:
+    """Seed -> ``gail_eval_avg`` of every GAIL run kept under
+    ``<root>/Pendulum-v1/``: a ``GAIL_seed_<s>`` dir, or a run dir whose
+    ``config.json`` names its seed. Two runs of one seed raise."""
+    out = {}
+    for d, _, files in sorted(os.walk(os.path.join(root, "Pendulum-v1"))):
+        if "summary.json" not in files:
+            continue
+        name = os.path.basename(d)
+        if name.startswith("GAIL_seed_"):
+            seed = int(name.rsplit("_", 1)[1])
+        else:
+            with open(os.path.join(d, "config.json")) as f:
+                seed = int(json.load(f)["seed"])
+        if seed in out:
+            raise ValueError(f"two GAIL runs of seed {seed} under {root}")
+        with open(os.path.join(d, "summary.json")) as f:
+            out[seed] = float(json.load(f)["gail_eval_avg"])
+    return out
+
+
+def gail_rule(ours_root: str, ref_root: str) -> dict:
+    """C20's rule: over the seeds both sides keep, each side's per-seed
+    ``gail_eval_avg``, mean and seeds past the gate, the two-sided
+    Mann-Whitney p, and whether it closes C20 (p >= ``P_MIN`` over at
+    least ``GAIL_MIN_SEEDS`` seeds)."""
+    ours, ref = gail_evals(ours_root), gail_evals(ref_root)
+    seeds = sorted(set(ours) & set(ref))
+    a, b = [ours[s] for s in seeds], [ref[s] for s in seeds]
+    test = mwu(a, b) if seeds else None
+    return dict(seeds=seeds, port=a, jax=b,
+                mean_port=float(np.mean(a)) if a else None,
+                mean_jax=float(np.mean(b)) if b else None,
+                gate=GAIL_GATE,
+                past_gate_port=[s for s in seeds if ours[s] >= GAIL_GATE],
+                past_gate_jax=[s for s in seeds if ref[s] >= GAIL_GATE],
+                mannwhitney=test,
+                closes=bool(test is not None and len(seeds) >= GAIL_MIN_SEEDS
+                            and test["p"] >= P_MIN))
+
+
+def committed(ours_root: str, committed_root: str, env: str,
+              stem: str) -> dict:
+    """The port's raw stack of ``stem`` against the JAX package's committed
+    one, row by row: the final-``WINDOW`` means, their means and the
+    two-sided Mann-Whitney p."""
+    a, b = (np.load(os.path.join(root, env, f"{stem}.npy"))
+            for root in (ours_root, committed_root))
+    fa, fb = (np.asarray(x, np.float64)[:, -WINDOW:].mean(1).tolist()
+              for x in (a, b))
+    return dict(env=env, stem=stem, window=WINDOW, port=fa, jax=fb,
+                mean_port=float(np.mean(fa)), mean_jax=float(np.mean(fb)),
+                mannwhitney=mwu(fa, fb))
+
+
 def spread(ours_root: str, ref_root: str, env: str, stem: str,
            below: float | None = None) -> dict:
     ours = side(ours_root, env, stem, below)
@@ -126,7 +203,25 @@ def main(argv=None) -> int:
                     help="count the seeds whose final-50 is below this")
     ap.add_argument("--greedy", default=None,
                     help="a greedy-rate JSON of scripts/torch_c12_greedy.py")
+    ap.add_argument("--gail", action="store_true",
+                    help="C20's rule over the two sides' GAIL runs")
+    ap.add_argument("--gail_ours", default=os.path.join(
+        ROOT, "results", "torch", "gail"))
+    ap.add_argument("--gail_ref", default=os.path.join(
+        ROOT, "results", "torch", "jax_head", "gail"))
+    ap.add_argument("--committed", action="store_true",
+                    help="the port's stack against the JAX package's "
+                         "committed one, draw by draw")
     args = ap.parse_args(argv)
+    if args.committed:
+        print(json.dumps(committed(
+            args.ours, os.path.join(ROOT, "results", "learning_curves"),
+            args.env, args.stem)), flush=True)
+        return 0
+    if args.gail:
+        print(json.dumps(gail_rule(args.gail_ours, args.gail_ref)),
+              flush=True)
+        return 0
     if args.greedy:
         with open(args.greedy) as f:
             rates = json.load(f)

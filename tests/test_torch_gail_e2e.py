@@ -320,3 +320,62 @@ def test_gate_is_held_in_golden_vs_jax(gail_eval, held, fails, tmp_path,
     os.remove(run / "summary.json")
     with pytest.raises(AssertionError, match="missing"):
         chip_smoke.phase_golden_vs_jax()
+
+
+def test_c20_rule_reads_both_sides(tmp_path):
+    """``scripts/torch_seed_spread.py --gail``: each side's runs by seed (a
+    stamped run dir by its ``config.json``, a ``GAIL_seed_<s>`` dir by its
+    name), the Mann-Whitney p over the seeds both keep, and C20's rule:
+    p >= 0.05 over at least 8 seeds a side; two runs of one seed refused."""
+    from scripts import torch_seed_spread as spread
+
+    def keep(d, value, seed=None):
+        os.makedirs(d)
+        with open(d / "summary.json", "w") as f:
+            json.dump({"gail_eval_avg": value}, f)
+        if seed is not None:
+            with open(d / "config.json", "w") as f:
+                json.dump({"seed": seed}, f)
+
+    ours, ref = tmp_path / "ours", tmp_path / "ref"
+    keep(ours / "Pendulum-v1" / "GAIL" / "20000101-000000", -400.0, 0)
+    for s in range(1, 9):
+        keep(ours / "Pendulum-v1" / f"GAIL_seed_{s}", -300.0 - 10 * s)
+    for s in range(8):
+        keep(ref / "Pendulum-v1" / f"GAIL_seed_{s}", -310.0 - 10 * s)
+    got = spread.gail_rule(str(ours), str(ref))
+    assert got["seeds"] == list(range(8)) and got["port"][0] == -400.0
+    assert got["closes"] and got["mannwhitney"]["p"] >= 0.05
+    assert got["past_gate_port"] == got["past_gate_jax"] == []
+    for s in range(8):
+        os.remove(ref / "Pendulum-v1" / f"GAIL_seed_{s}" / "summary.json")
+        keep(ref / "Pendulum-v1" / f"run_{s}", -150.0, s)
+    got = spread.gail_rule(str(ours), str(ref))
+    assert not got["closes"] and got["mannwhitney"]["p"] < 0.05
+    assert got["past_gate_jax"] == list(range(8))
+    keep(ours / "Pendulum-v1" / "GAIL" / "20000101-000001", -400.0, 0)
+    with pytest.raises(ValueError, match="two GAIL runs of seed 0"):
+        spread.gail_evals(str(ours))
+
+
+def test_c20_stays_open_over_8_seeds_a_side():
+    """C20's rule over the committed runs: the port's seeds 0-7 of
+    scripts/gail_e2e.py at its defaults on the card (seed 0 the gate's
+    run, 1-7 kept as ``GAIL_seed_<s>``, each with its card record, 800
+    GAIL iterations and no sum-tree launch) against the JAX package's
+    seeds 0-7 at this commit: p < 0.05, so C20 stays open, held to FAIL in
+    ``golden.OPEN_FAULTS``."""
+    from scripts import torch_seed_spread as spread
+
+    for s in range(1, 8):
+        with open(os.path.join(e2e.DEFAULT_OUT, "Pendulum-v1",
+                               f"GAIL_seed_{s}", "run.json")) as f:
+            rec = json.load(f)
+        assert "H100" in rec["card"] and rec["b1_launches"] == 0
+        assert (rec["expert_episodes"], rec["gail_iterations"]) == (3000, 800)
+    got = spread.gail_rule(e2e.DEFAULT_OUT,
+                           os.path.join(golden.JAX_HEAD_ROOT, "gail"))
+    assert got["seeds"] == list(range(8)) and not got["closes"]
+    assert got["mannwhitney"]["p"] < 0.05
+    assert golden.OPEN_FAULTS[GATE["name"]] == "C20"
+    assert GATE["name"] not in golden.STALE_REFERENCES

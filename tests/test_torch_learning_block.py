@@ -54,14 +54,17 @@ def test_the_block_runs_the_checks_and_the_recipes(monkeypatch):
     ``BLOCK_PHASES`` and every recipe of ``RECIPE_TABLES`` in one block
     (``block_task`` sends each name to ``phase_learning``, ``block_phase``
     or ``recipe``), sums the sum-tree launches by the checks' drivers, the
-    phases' counts and the recipes' tables, and fails on a recipe over
+    phases' counts and the recipes' tables, keeps each walker recipe's K2
+    and K3 launches by its tag, and fails on a recipe over
     ``N5_TIMEOUT_S`` or a moved random state, naming it."""
     from freerl_tpu_torch.train import golden
 
     monkeypatch.setattr(chip_smoke, "phase_learning",
                         lambda name: dict(line=f"check {name}", launches=1))
-    monkeypatch.setattr(chip_smoke, "recipe",
-                        lambda tag: dict(line=f"recipe {tag}", launches=2))
+    walker = ("CEM_GD3PG_4_seed", "PPO_BipedalWalker")
+    monkeypatch.setattr(chip_smoke, "recipe", lambda tag: dict(
+        line=f"recipe {tag}", launches=2,
+        **(dict(k2=5, k3=6) if tag in walker else {})))
     # each phase as it returns: launches as an int, in a dict, or none
     fakes = {name: ((lambda *a: dict(launches=4)) if args else
                     (lambda: 4) if key else (lambda: None), args, key)
@@ -80,11 +83,13 @@ def test_the_block_runs_the_checks_and_the_recipes(monkeypatch):
     tables = {name: len(getattr(golden, table))
               for name, table, _ in chip_smoke.RECIPE_TABLES}
     assert tables == {"n5": len(golden.N5_RUNS), "spread": 1, "envelope": 1,
-                      "pixel": 1, "gail": 1}
+                      "pixel": 1, "gail": 1, "cem_bipedal": 1,
+                      "ppo_bipedal": 1}
     drivers = [c.get("driver") for c in chip_smoke.LEARNING_CHECKS.values()]
     assert got == {"onpolicy": drivers.count("onpolicy") + 4 * 7,
                    "marl": drivers.count("marl"),
-                   **{name: 2 * n for name, n in tables.items()}}
+                   **{name: 2 * n for name, n in tables.items()},
+                   "walker": {tag: (5, 6) for tag in walker}}
     seconds["ENVELOPE"] = chip_smoke.N5_TIMEOUT_S + 1
     with pytest.raises(AssertionError, match="ENVELOPE"):
         chip_smoke.phase_learning_block()

@@ -31,7 +31,7 @@ TAGS = [t for t in r5.RUNS if t not in golden.R5_LATER]
 
 def test_runs_are_the_jax_scripts():
     assert r5.RUNS == jax_r5.RUNS
-    assert golden.R5_LATER == ("PPO_BipedalWalker",)
+    assert golden.R5_LATER == ()
 
 
 def _digest(root) -> dict:
@@ -100,7 +100,8 @@ def test_rows_take_the_jax_gate(tag):
     algo, env_name, stem, seeds, _ = r5.RUNS[tag]
     ours = f"{stem}_{len(seeds)}_seed"
     gate = {"DDPG_discrete_CartPole": "DDPG_discrete_3_seed",
-            "DQN_FrozenLake": "DQN_10_seed"}.get(tag, ours)
+            "DQN_FrozenLake": "DQN_10_seed",
+            "PPO_BipedalWalker": "PPO_10_seed"}.get(tag, ours)
     want = next(s for s in jax_golden.SPECS if (s.env, s.algo) ==
                 (env_name, gate))
     rows = [r for r in golden.JAX_PARITY if (r.env, r.algo) ==
@@ -121,7 +122,7 @@ def test_rows_take_the_jax_gate(tag):
 
 def test_rows_read_the_committed_jax_stacks():
     """The committed-reference rows read the stacks the JAX script wrote
-    (final-50 as committed); the walker's tag has no row."""
+    (final-50 as committed), the walker's among them."""
     got = {golden.row_key(r): golden.check_against_jax(r)["ref_seeds"]
            for r in golden.JAX_PARITY
            if getattr(r, "ref", "committed") == "committed"
@@ -130,14 +131,15 @@ def test_rows_read_the_committed_jax_stacks():
     assert got["Pendulum-v1/DDPG_simple_3_seed"] == [-232.1, -242.0,
                                                      -126.9]
     assert got["CartPole-v1/DDPG_discrete_1_seed"] == [205.9]
-    assert len(got) == len(TAGS)
-    assert not any(r.env == "BipedalWalker-v3" for r in golden.JAX_PARITY)
+    assert got["BipedalWalker-v3/PPO_3_seed"] == [35.7, 108.9, 90.5]
+    assert len(got) == len(TAGS) == len(r5.RUNS)
 
 
 def test_jobs_skip_and_force(tmp_path, monkeypatch):
     """A tag is the row its seeds run for; the card runner makes one job a
     seed, the port's CLI on the JAX script's argv, and none for a seed
-    kept already unless it is forced; the walker's tag is refused."""
+    kept already unless it is forced; the walker's tag is a row like the
+    others."""
     monkeypatch.setattr(golden, "OURS_ROOT", str(tmp_path))
     keys = r5.row_keys(["DQN_FrozenLake"])
     assert keys == ["FrozenLake-v1/DQN_3_seed"]
@@ -161,8 +163,8 @@ def test_jobs_skip_and_force(tmp_path, monkeypatch):
                 start=golden.pinned_start(row, seed))})
     assert card.make_jobs(None, keys, 1, "cuda", "R", True) == []
     assert len(card.make_jobs(None, keys, 1, "cuda", "R", False)) == 3
-    with pytest.raises(ValueError):
-        r5.main(["--only", "PPO_BipedalWalker", "--device", "cpu"])
+    assert r5.row_keys(["PPO_BipedalWalker"]) == [
+        "BipedalWalker-v3/PPO_3_seed"]
     with pytest.raises(KeyError):
         r5.row_keys(["DQN_Atari"])
 
@@ -252,14 +254,15 @@ def test_not_comparable_rows_are_the_fixed_reset_rows_whose_starts_differ():
             if not seen[(row.env, seed)]:
                 want.add(golden.row_key(row))
     assert want == set(golden.NOT_COMPARABLE) == set()
-    # CartPole, Pendulum, LunarLander and MountainCarContinuous 3 starts
-    # each (SAC_16_seed's all pin seed 0's), FrozenLake 16, Taxi 1,
+    # CartPole, Pendulum, LunarLander, MountainCarContinuous and
+    # BipedalWalker 3 starts each (SAC_16_seed's all pin seed 0's),
+    # FrozenLake 16, Taxi 1,
     # MountainCar 12 (0-9, 10, 100), MountainCarContinuous 13 more (DDPG
     # OUNoise over 16 seeds), simple_spread_v3 and simple_adversary_v3 3
     # each (the N=5 matrix; IPPO_L100's pin seed 100's; each recipe's
     # starts at its own agent count: tests/test_torch_r5_marl_n5.py), and
     # simple_spread_v3 13 more (MAAC_N5 over 16 seeds)
-    assert len(seen) == 4 * 3 + 16 + 1 + 12 + 13 + 2 * 3 + 13
+    assert len(seen) == 5 * 3 + 16 + 1 + 12 + 13 + 2 * 3 + 13
 
 
 def test_reset_starts_script_on_the_cpu(capsys):
