@@ -226,7 +226,9 @@ Phases (any failure raises, and the script exits non-zero):
     four stages (``golden.GAIL_RUNS``) through
     ``scripts/torch_gail_e2e.run`` with 8 expert episodes and 2 GAIL
     iterations (``gail_recipe``): the artifact set whole, finite, and read
-    by ``golden.check_scalar``; scripts/r5_cem_bipedal.py's draw 0
+    by ``golden.check_scalar``, and the cut expert's evaluation from seed
+    1000 once more, its starts within ``golden.START_ULPS`` of the JAX
+    package's (``GAIL_EVAL_STARTS``); scripts/r5_cem_bipedal.py's draw 0
     (``golden.CEM_BIPEDAL_RUNS``) through
     ``scripts/torch_r5_cem_bipedal.train`` for its first ES generation
     and two episodes more (``cem_bipedal_recipe``: finite returns, one
@@ -5218,6 +5220,22 @@ def pixel_recipe(tag: str, device: str = "cuda") -> dict:
 # first 4 iterations of 400 env steps (each env ends its first 200-step
 # episode in the 4th), and 2 GAIL iterations; the expert set whole
 GAIL_SMOKE_EXPERT_EPISODES, GAIL_SMOKE_ITERS = 8, 2
+# the start observations of the JAX package's evaluation from seed 1000 on
+# Pendulum-v1 (``jax.vmap(env.reset)(jax.random.split(PRNGKey(1000), 10))``,
+# JAX 0.9.0 on the CPU): the ten held-out episodes both GAIL scripts score
+# on, |theta| 3.11, 2.79, 0.03, 2.80, 2.83, 0.45, 0.18, 1.08, 0.60, 1.01
+GAIL_EVAL_STARTS = (
+    (-0.9994683265686035, 0.03260478749871254, 0.8247678279876709),
+    (-0.9398584961891174, 0.34156402945518494, 0.12442636489868164),
+    (0.9994266033172607, 0.03385944664478302, 0.8492968082427979),
+    (-0.9422470927238464, 0.3349185585975647, -0.1140902042388916),
+    (-0.9524323344230652, -0.30475014448165894, 0.5417444705963135),
+    (0.8996695280075073, 0.43657150864601135, 0.5561115741729736),
+    (0.9839082360267639, -0.17867442965507507, -0.4616682529449463),
+    (0.46807533502578735, -0.8836885690689087, 0.14528512954711914),
+    (0.8227552771568298, 0.5683957934379578, -0.8784990310668945),
+    (0.5310848951339722, 0.8473185896873474, -0.3145625591278076),
+)
 
 
 def gail_recipe(tag: str, device: str = "cuda") -> dict:
@@ -5230,8 +5248,11 @@ def gail_recipe(tag: str, device: str = "cuda") -> dict:
     of the summary and of the curves must be finite, the expert set must
     hold the recipe's pairs, ``golden.check_scalar`` must read the run's
     summary for the gate (pass or FAIL, not missing), and no stage may
-    launch the sum-tree kernel. Returns the launches, the seconds and a
-    line to log."""
+    launch the sum-tree kernel. Then the cut expert is evaluated once more
+    through ``evaluate(seed0=1000)``: its start observations must lie
+    within ``golden.START_ULPS`` float32 ulps of the JAX package's
+    (``GAIL_EVAL_STARTS``) and its returns must be the run's expert
+    evaluation. Returns the launches, the seconds and a line to log."""
     import tempfile
 
     from freerl_tpu_torch.train import golden
@@ -5270,17 +5291,44 @@ def gail_recipe(tag: str, device: str = "cuda") -> dict:
         raise AssertionError(f"{tag}: check_scalar read {row}")
     if launches:
         raise AssertionError(f"{tag}: {launches} sum-tree launches")
+    starts_ulps, again = gail_eval_starts(r["expert_act"], device)
+    if starts_ulps > golden.START_ULPS \
+            or float(np.mean(again)) != summary["expert_eval_avg"]:
+        raise AssertionError(f"{tag}: evaluation starts {starts_ulps} ulps "
+                             f"from JAX's, returns {again} against the "
+                             f"run's {summary['expert_eval_avg']}")
     line = (f"[gail {tag}] scripts/torch_gail_e2e.py's four stages: "
             f"{r['expert_info']['episodes']} expert episodes in "
             f"{r['expert_info']['iterations']} iterations, "
             f"{args['n_expert_transitions']} expert pairs, "
             f"{r['gail_iterations']} GAIL iterations; expert eval "
-            f"{summary['expert_eval_avg']:.2f}, GAIL eval "
+            f"{summary['expert_eval_avg']:.2f} (starts {starts_ulps} ulps "
+            f"from JAX's), GAIL eval "
             f"{summary['gail_eval_avg']:.2f} (check_scalar: "
             f"{row['status']}); stages "
             f"{ {k: round(v, 1) for k, v in r['seconds'].items()} } s; "
             f"sumtree launches {launches}, {seconds:.1f} s")
     return dict(launches=launches, seconds=seconds, line=line)
+
+
+def gail_eval_starts(act_fn, device: str = "cuda"):
+    """The held-out evaluation of ``act_fn`` on Pendulum-v1 from seed 1000,
+    as the GAIL scripts score it (``evaluate``, 10 episodes): the largest
+    gap of its start observations (the ones ``act_fn`` first sees) from
+    ``GAIL_EVAL_STARTS`` in float32 ulps, and its returns."""
+    from freerl_tpu_torch.envs import make
+    from freerl_tpu_torch.train import evaluate, golden
+
+    seen = []
+
+    def act(obs):
+        if not seen:
+            seen.append(obs.cpu().numpy())
+        return act_fn(obs)
+
+    returns = evaluate(make("Pendulum-v1", device=device), act,
+                       n_episodes=10, seed0=1000)
+    return golden.start_ulps(seen[0], GAIL_EVAL_STARTS), returns
 
 
 def walker_count(run, device: str = "cuda"):

@@ -8,9 +8,10 @@ state tensors, with every random draw passed in as an argument:
 
 ``draw_reset(n, generator)`` and ``draw_step(n, generator)`` make those draws
 from an explicit ``torch.Generator``, so a test can feed in exactly the
-numbers another implementation drew; ``key_reset_draw(key)`` makes, on the
-host, the one reset draw that the JAX package's env makes from a
-``jax.random`` key (``core/jax_prng.py``). The functions act on the whole
+numbers another implementation drew; ``key_reset_draw(key)`` and
+``key_step_draw(keys)`` make, on the host, the draws that the JAX
+package's env makes in ``reset(key)`` and ``step(state, action, key)`` from
+``jax.random`` keys (``core/jax_prng.py``). The functions act on the whole
 batch at once; there is no vmap. Termination and truncation stay separate
 signals for the ``done`` (bootstrap) vs ``episode_done`` convention.
 
@@ -63,9 +64,23 @@ class Env:
             f"{type(self).__name__} has no key_reset_draw: the JAX "
             f"package's reset draw is not known for it")
 
+    def key_step_draw(self, keys: np.ndarray):
+        """The step draws, ``(n, ...)`` as ``draw_step`` lays them out, that
+        the JAX package's env makes in ``step(state, action, key)`` from
+        each of the ``(n, 2)`` uint32 keys ``keys``, recomputed with
+        ``core/jax_prng.py``; None where its step draws nothing (as
+        ``draw_step`` returns)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no key_step_draw: the JAX "
+            f"package's step draw is not known for it")
+
     def _host_draw(self, draw: np.ndarray, dtype=None) -> torch.Tensor:
         """A host draw as a ``(1, ...)`` tensor on the env's device."""
-        out = torch.from_numpy(np.array(draw)[None])
+        return self._host_rows(np.array(draw)[None], dtype)
+
+    def _host_rows(self, draws: np.ndarray, dtype=None) -> torch.Tensor:
+        """Host draws, one a row, as a tensor on the env's device."""
+        out = torch.from_numpy(np.ascontiguousarray(draws))
         return out.to(device=self.device, dtype=dtype)
 
     def observation(self, state) -> torch.Tensor:
@@ -191,6 +206,9 @@ class _Wrapper(Env):
 
     def key_reset_draw(self, key: np.ndarray) -> torch.Tensor:
         return self.env.key_reset_draw(key)
+
+    def key_step_draw(self, keys: np.ndarray):
+        return self.env.key_step_draw(keys)
 
     def reset(self, reset_draw: torch.Tensor):
         return self.env.reset(reset_draw)

@@ -329,6 +329,9 @@ class BipedalWalker(Env):
     def draw_step(self, n: int, generator: torch.Generator):
         return None
 
+    def key_step_draw(self, keys):
+        return None
+
     def _gen_terrain(self, u: torch.Tensor) -> torch.Tensor:
         """Grass-only random walk (gym _generate_terrain, GRASS state): a
         sequential 200-step loop over the batch."""

@@ -9,7 +9,9 @@ operations. The dynamics are deterministic; the only draws are the
 resets', an argument of ``reset`` that ``draw_reset`` makes from a
 ``torch.Generator``. ``step`` takes a step draw for the protocol's sake and
 ignores it (``draw_step`` returns None). Truncation counts only where the
-episode did not terminate.
+episode did not terminate. Where XLA fuses a multiply and an add of the
+JAX version's step into one rounding (Pendulum's), the port rounds once
+too (``fma32``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,19 @@ from freerl_tpu_torch.core.types import DimInfo
 from freerl_tpu_torch.envs.base import Env
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded to float32 as a fused multiply-add rounds it
+    (``a``, ``b`` float32 tensors or numbers, at least one a tensor; ``c``
+    a float32 tensor): the product is exact in float64, and the float64
+    sum rounds to the float32 of the exact value bar a float64 sum on a
+    float32 tie (one case in about 2^29). Numbers stay kernel arguments:
+    no host-to-device copy."""
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else float(np.float32(x))
+
+    return (f64(a) * f64(b) + c.double()).float()
+
+
 def _uniform(n, shape, low, high, generator, device):
     u = torch.rand((n,) + shape, generator=generator, device=device)
     return u * (high - low) + low
@@ -33,6 +48,9 @@ class _Classic(Env):
     """Deterministic dynamics: no step draw."""
 
     def draw_step(self, n: int, generator: torch.Generator):
+        return None
+
+    def key_step_draw(self, keys):
         return None
 
     def _t0(self, n: int) -> torch.Tensor:
@@ -249,13 +267,15 @@ class Pendulum(_Classic):
         th, thdot = state.theta, state.theta_dot
         # Python's floor modulo, as jnp's %: torch.remainder, not fmod
         norm_th = torch.remainder(th + math.pi, 2 * math.pi) - math.pi
-        cost = norm_th**2 + 0.1 * thdot**2 + 0.001 * u**2
-        newthdot = thdot + (
-            3 * self.g / (2 * self.l) * torch.sin(th)
-            + 3.0 / (self.m * self.l**2) * u
-        ) * self.dt
+        # norm_th**2 + 0.1 * thdot**2 + 0.001 * u**2, with XLA's two fusions
+        cost = fma32(0.001, u * u, fma32(0.1, thdot * thdot,
+                                         norm_th * norm_th))
+        # thdot + (3g/2l sin(th) + 3/(ml^2) u) dt, each add fused
+        accel = fma32(3 * self.g / (2 * self.l), torch.sin(th),
+                      3.0 / (self.m * self.l**2) * u)
+        newthdot = fma32(accel, self.dt, thdot)
         newthdot = torch.clamp(newthdot, -self.max_speed, self.max_speed)
-        newth = th + newthdot * self.dt
+        newth = fma32(newthdot, self.dt, th)
         new = PendulumState(newth, newthdot, state.t + 1)
         terminated = torch.zeros_like(newth, dtype=torch.bool)
         truncated = new.t >= self.max_steps

@@ -109,6 +109,9 @@ class GoalPendulum(Env):
     def draw_step(self, n: int, generator: torch.Generator):
         return None
 
+    def key_step_draw(self, keys):
+        return None
+
     def reset(self, draw: torch.Tensor):
         inner, inner_obs = self._inner.reset(draw[:, :2])
         goal = self.goal_from_draw(draw[:, 2:])

@@ -88,9 +88,12 @@ class HostBridge(Env):
     over envs stepped on the host: a subclass provides
     ``_host_reset(seed) -> obs`` and ``_host_step(actions) -> (next_obs,
     carry_obs, reward, terminated, truncated)`` on numpy arrays, and sets
-    ``num_envs``."""
+    ``num_envs``. Its seeds come from a ``torch.Generator``, as the JAX
+    bridge's come from its host seeding outside ``jax.random``: it has no
+    JAX key draws (``host_seeded``)."""
 
     num_envs: int
+    host_seeded = True
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)

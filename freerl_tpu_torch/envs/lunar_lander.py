@@ -147,6 +147,14 @@ class _LunarLanderBase(Env):
         u = torch.rand((n, 2), generator=generator, device=self.device)
         return (u * 2.0 - 1.0) / SCALE
 
+    def key_step_draw(self, keys) -> torch.Tensor:
+        """The JAX lander's dispersion: ``fold_in(key, 7)`` split in two,
+        the first half's uniforms in +-1 over SCALE."""
+        keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+        k1 = jax_prng.split(jax_prng.fold_in(keys, 7))[:, 0]
+        return self._host_rows(jax_prng.uniform(k1, (2,), -1.0, 1.0)
+                               / np.float32(SCALE))
+
     # ------------------------------------------------------------------
     def reset(self, f: torch.Tensor):
         n = f.shape[0]

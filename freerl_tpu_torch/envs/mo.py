@@ -78,6 +78,9 @@ class DeepSeaTreasure(Env):
     def draw_step(self, n: int, generator: torch.Generator):
         return None
 
+    def key_step_draw(self, keys):
+        return None
+
     def reset(self, reset_draw: torch.Tensor):
         zero = torch.zeros_like(reset_draw, dtype=torch.int32)
         state = DSTState(row=zero, col=zero.clone(), t=zero.clone())

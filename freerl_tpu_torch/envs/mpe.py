@@ -138,6 +138,9 @@ class MPEBase(Env):
     def draw_step(self, n: int, generator: torch.Generator):
         return None
 
+    def key_step_draw(self, keys):
+        return None
+
     def _initial(self, draw: torch.Tensor) -> dict:
         n, e = draw.shape[0], self.n_entities
         pos = draw[:, :2 * e].reshape(n, e, 2)

@@ -90,6 +90,9 @@ class PixelCartPole(Env):
     def draw_step(self, n: int, generator: torch.Generator):
         return self._inner.draw_step(n, generator)
 
+    def key_step_draw(self, keys):
+        return self._inner.key_step_draw(keys)
+
     def reset(self, reset_draw: torch.Tensor):
         inner, _ = self._inner.reset(reset_draw)
         frame = self.render_frame(inner)

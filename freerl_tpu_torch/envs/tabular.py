@@ -72,6 +72,12 @@ class _TabularEnv(Env):
         u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
+    def key_step_draw(self, keys) -> torch.Tensor:
+        """The Gumbel noise of the JAX step's ``jax.random.categorical``
+        over the K outcomes."""
+        keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+        return self._host_rows(jax_prng.gumbel(keys, (self.n_outcomes,)))
+
     def reset(self, start_idx: torch.Tensor):
         s = self.start_states[start_idx]
         state = TabularState(s=s, t=torch.zeros(s.shape[0], dtype=torch.int32,

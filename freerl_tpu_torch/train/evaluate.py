@@ -9,6 +9,9 @@
 The rollout is one batch of ``n_episodes`` envs stepped for
 ``env.max_steps`` vector steps on the env's device; a finished episode
 freezes (its state, obs and return stop changing) until the batch ends.
+Its episodes are the JAX package's for the same ``seed0``: the same reset
+and step draws, recomputed from the same ``jax.random`` keys on the host
+(``jax_draws``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from freerl_tpu_torch.core import jax_prng
 from freerl_tpu_torch.envs.base import Env, _select, row_mask
 
 
@@ -33,6 +37,24 @@ def rollout_draws(env: Env, n: int, steps: int, generator: torch.Generator):
     rollout, made from ``generator``."""
     reset_draw = env.draw_reset(n, generator)
     return reset_draw, [env.draw_step(n, generator) for _ in range(steps)]
+
+
+def jax_draws(env: Env, n: int, steps: int, seed0: int):
+    """(reset draw, [step draw per step]) of the JAX package's evaluation
+    from ``seed0`` (``freerl_tpu/train/evaluate.py``): each episode resets
+    from a key of ``split(PRNGKey(seed0), n)``, and step t draws from the
+    keys of ``split(fold_in(PRNGKey(seed0 + 7), t), n)``. Made on the host
+    (``env.key_reset_draw``, ``env.key_step_draw``), then moved to the
+    env's device in one copy each."""
+    keys = jax_prng.split(jax_prng.prng_key(seed0), n)
+    reset_draw = torch.cat([env.key_reset_draw(k) for k in keys])
+    step_keys = jax_prng.split(jax_prng.fold_in(
+        jax_prng.prng_key(seed0 + 7), np.arange(steps)), n)   # (T, n, 2)
+    flat = env.key_step_draw(step_keys.reshape(-1, 2))
+    if flat is None:
+        return reset_draw, [None] * steps
+    per_step = flat.reshape((steps, n) + flat.shape[1:])
+    return reset_draw, list(per_step.unbind(0))
 
 
 @torch.no_grad()
@@ -81,18 +103,25 @@ def evaluate(env: Env, act_fn, n_episodes: int = 100, seed0: int = 0,
     rmappo.py``) passes ``carry_init`` (``algo.init_policy_carry(
     n_episodes)``) and an ``act_fn(obs, carry) -> (action, carry)``;
     episodes never reset mid-rollout (finished ones freeze), so no hidden
-    resets are needed. The reset draw and the per-step draws come from a
-    generator seeded with ``seed0``, or from ``draws = (reset_draw,
-    step_draws)`` (``step_draws[t]`` for step t; see ``rollout_draws``).
-    A vector (multi-objective) reward is scalarized by its sum. Returns
-    (n_episodes,) returns, or (n_episodes, n_agents) with ``multi_agent``.
+    resets are needed. The episodes are the JAX package's held-out ones for
+    ``seed0`` (``jax_draws``), or those of ``draws = (reset_draw,
+    step_draws)`` (``step_draws[t]`` for step t; ``rollout_draws`` makes
+    them from a generator). An env that seeds itself on the host (the host
+    bridge, ``envs/host.py``, and SMAC: their JAX counterparts seed
+    themselves outside ``jax.random`` too) draws from a generator seeded
+    with ``seed0``; any other env without the JAX key draws raises
+    ``NotImplementedError``. A vector (multi-objective) reward is
+    scalarized by its sum. Returns (n_episodes,) returns, or (n_episodes,
+    n_agents) with ``multi_agent``.
     """
     T = max_steps or env.max_steps
     if remap01 is None:
         remap01 = default_remap01(env)
-    if draws is None:
+    if draws is None and getattr(env, "host_seeded", False):
         generator = torch.Generator(device=env.device).manual_seed(seed0)
         draws = rollout_draws(env, n_episodes, T, generator)
+    elif draws is None:
+        draws = jax_draws(env, n_episodes, T, seed0)
     ret = run_episodes(env, act_fn, n_episodes, T, multi_agent, remap01,
                        carry_init, draws)
     return ret.cpu().numpy()

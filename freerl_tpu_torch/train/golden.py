@@ -1558,14 +1558,15 @@ def recipe_row(key: str) -> GoldenSpec:
 # rows of JAX_PARITY (by ``row_key``), and gates of SCALAR_GATES (by name),
 # whose committed port result misses its gate, with the open fault of
 # ROADMAP's queue C that tracks each: such a row must read FAIL until the
-# fault is closed. C20: the port's scripts/gail_e2e.py seed 0 reads
-# gail_eval_avg -402.8 against the gate's -190.0; over seeds 0-7 a side
-# (the port's on the card, results/torch/gail/Pendulum-v1/; the JAX
-# package's at this commit on the CPU, results/torch/jax_head/gail/) the
-# port reads -88.7 to -402.8 (mean -153.3, 7 of 8 past the gate) against
-# -198.3 to -819.5 (mean -388.0, none), Mann-Whitney p 0.0030: the two
-# differ, so C20 stays open as a fault of the port
-# (scripts/torch_seed_spread.py --gail)
+# fault is closed. C20: the gate reads the port's seed 0 of
+# scripts/gail_e2e.py; over seeds 0-7 a side scored on the JAX package's
+# held-out episodes (the port's on the card, results/torch/gail/Pendulum-v1/;
+# the JAX package's at this commit on the CPU, results/torch/jax_head/gail/)
+# the port reads -189.3 to -422.5 (seed 0 -422.5) against -198.3 to -819.5,
+# Mann-Whitney p 0.161. Those port runs were made before Pendulum's step
+# rounded each fused multiply-add once (envs/classic.py:fma32; each
+# run.json names its tree), so C20 stays open, undecided, until the same
+# 8 seeds run on the tree that has it (scripts/torch_seed_spread.py --gail)
 OPEN_FAULTS: dict = {"GAIL_Pendulum_eval": "C20"}
 # rows whose seeds would train on another task in each package, each with
 # the reason: checked and printed, but held to nothing (neither a pass nor a

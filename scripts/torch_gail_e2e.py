@@ -14,13 +14,16 @@ and defaults (``golden.GAIL_RUNS``), each through the port's public names:
    8 envs, lr 3e-4 decaying over the expert's episodes, observation
    normalization, reward scaling, orthogonal init), trained by
    ``train_onpolicy`` for ``--expert_episodes`` episodes;
-2. its 10-episode evaluation from seed 1000 (``evaluate``) and
+2. its 10-episode evaluation from seed 1000 (``evaluate``: the JAX
+   script's ten held-out episodes, the same starts) and
    ``--n_expert_transitions`` expert pairs (``collect_expert_data``), both
-   from ``PPO.evaluate_action`` on raw observations;
+   from ``PPO.evaluate_action`` on raw observations. The expert set keeps
+   the port's generator: it is compared with the JAX script's by its
+   statistics, not episode by episode;
 3. GAIL with ``gail_configs`` (PPO at horizon 2048, lr 1e-4; one D step an
    iteration at d_lr 1e-4), trained by ``train_gail`` for
    ``--gail_iters`` iterations from seed ``--seed + 1``;
-4. the GAIL policy's evaluation, as the expert's.
+4. the GAIL policy's evaluation, on the same ten episodes.
 
 The run dir, ``<out>/Pendulum-v1/GAIL/<stamp>/`` (``init_logging``), holds
 the JAX script's artifact set with its keys: ``config.json``,
@@ -83,8 +86,9 @@ def gail_configs():
 def run(expert_episodes: int, gail_iters: int, n_expert_transitions: int,
         seed: int, out: str, device: str = "cuda", log=print) -> dict:
     """The four stages into a new run dir under ``out``; returns the
-    summary, the run dir, each stage's seconds, the sum-tree launches and
-    the expert's and GAIL's loop infos."""
+    summary, the run dir, each stage's seconds, the sum-tree launches, the
+    expert's and GAIL's loop infos and the expert's greedy policy on the
+    env's device (``expert_act``)."""
     from freerl_tpu_torch.algos import (GAIL, PPO, collect_expert_data,
                                         init_logging, train_gail)
     from freerl_tpu_torch.envs import make
@@ -159,6 +163,7 @@ def run(expert_episodes: int, gail_iters: int, n_expert_transitions: int,
     log(json.dumps(summary))
     return dict(summary=summary, run_dir=run_dir, seconds=seconds,
                 launches=sumtree.launches, expert_info=expert_info,
+                expert_act=expert_act,
                 gail_iterations=len(curve), history=history)
 
 

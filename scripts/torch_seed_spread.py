@@ -45,7 +45,8 @@ naming its seed, or a ``GAIL_seed_<s>`` dir) and under ``--gail_ref``
 (``results/torch/jax_head/gail``: the JAX package's, ``GAIL_seed_<s>``),
 each seed's ``gail_eval_avg``, both sides' means, the seeds past the gate
 (-190.0), and the two-sided Mann-Whitney p over the seeds both keep; the
-rule closes C20 where p >= 0.05 over at least 8 seeds a side.
+rule closes C20 where p >= 0.05 over at least 8 seeds a side. Beside it,
+``expert``: the same test over the experts' ``expert_eval_avg``.
 """
 from __future__ import annotations
 
@@ -121,8 +122,8 @@ GAIL_GATE = -190.0          # SCALAR_GATES' GAIL_Pendulum_eval floor
 GAIL_MIN_SEEDS = 8
 
 
-def gail_evals(root: str) -> dict:
-    """Seed -> ``gail_eval_avg`` of every GAIL run kept under
+def gail_evals(root: str, key: str = "gail_eval_avg") -> dict:
+    """Seed -> ``key`` of the summary of every GAIL run kept under
     ``<root>/Pendulum-v1/``: a ``GAIL_seed_<s>`` dir, or a run dir whose
     ``config.json`` names its seed. Two runs of one seed raise."""
     out = {}
@@ -138,7 +139,7 @@ def gail_evals(root: str) -> dict:
         if seed in out:
             raise ValueError(f"two GAIL runs of seed {seed} under {root}")
         with open(os.path.join(d, "summary.json")) as f:
-            out[seed] = float(json.load(f)["gail_eval_avg"])
+            out[seed] = float(json.load(f)[key])
     return out
 
 
@@ -146,11 +147,15 @@ def gail_rule(ours_root: str, ref_root: str) -> dict:
     """C20's rule: over the seeds both sides keep, each side's per-seed
     ``gail_eval_avg``, mean and seeds past the gate, the two-sided
     Mann-Whitney p, and whether it closes C20 (p >= ``P_MIN`` over at
-    least ``GAIL_MIN_SEEDS`` seeds)."""
+    least ``GAIL_MIN_SEEDS`` seeds); beside it the experts'
+    ``expert_eval_avg`` over the same seeds, with their own p."""
     ours, ref = gail_evals(ours_root), gail_evals(ref_root)
     seeds = sorted(set(ours) & set(ref))
     a, b = [ours[s] for s in seeds], [ref[s] for s in seeds]
     test = mwu(a, b) if seeds else None
+    eo, er = (gail_evals(root, "expert_eval_avg")
+              for root in (ours_root, ref_root))
+    ea, eb = [eo[s] for s in seeds], [er[s] for s in seeds]
     return dict(seeds=seeds, port=a, jax=b,
                 mean_port=float(np.mean(a)) if a else None,
                 mean_jax=float(np.mean(b)) if b else None,
@@ -159,7 +164,11 @@ def gail_rule(ours_root: str, ref_root: str) -> dict:
                 past_gate_jax=[s for s in seeds if ref[s] >= GAIL_GATE],
                 mannwhitney=test,
                 closes=bool(test is not None and len(seeds) >= GAIL_MIN_SEEDS
-                            and test["p"] >= P_MIN))
+                            and test["p"] >= P_MIN),
+                expert=dict(port=ea, jax=eb,
+                            mean_port=float(np.mean(ea)) if ea else None,
+                            mean_jax=float(np.mean(eb)) if eb else None,
+                            mannwhitney=mwu(ea, eb) if seeds else None))
 
 
 def committed(ours_root: str, committed_root: str, env: str,

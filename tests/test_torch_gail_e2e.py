@@ -332,7 +332,8 @@ def test_c20_rule_reads_both_sides(tmp_path):
     def keep(d, value, seed=None):
         os.makedirs(d)
         with open(d / "summary.json", "w") as f:
-            json.dump({"gail_eval_avg": value}, f)
+            json.dump({"gail_eval_avg": value,
+                       "expert_eval_avg": value / 2}, f)
         if seed is not None:
             with open(d / "config.json", "w") as f:
                 json.dump({"seed": seed}, f)
@@ -347,6 +348,8 @@ def test_c20_rule_reads_both_sides(tmp_path):
     assert got["seeds"] == list(range(8)) and got["port"][0] == -400.0
     assert got["closes"] and got["mannwhitney"]["p"] >= 0.05
     assert got["past_gate_port"] == got["past_gate_jax"] == []
+    assert got["expert"]["port"][0] == -200.0
+    assert got["expert"]["mannwhitney"] == got["mannwhitney"]
     for s in range(8):
         os.remove(ref / "Pendulum-v1" / f"GAIL_seed_{s}" / "summary.json")
         keep(ref / "Pendulum-v1" / f"run_{s}", -150.0, s)
@@ -362,20 +365,33 @@ def test_c20_stays_open_over_8_seeds_a_side():
     """C20's rule over the committed runs: the port's seeds 0-7 of
     scripts/gail_e2e.py at its defaults on the card (seed 0 the gate's
     run, 1-7 kept as ``GAIL_seed_<s>``, each with its card record, 800
-    GAIL iterations and no sum-tree launch) against the JAX package's
-    seeds 0-7 at this commit: p < 0.05, so C20 stays open, held to FAIL in
-    ``golden.OPEN_FAULTS``."""
+    GAIL iterations and no sum-tree launch), scored on the JAX package's
+    held-out episodes, against the JAX package's seeds 0-7 at this commit:
+    p 0.161, experts p >= 0.05. Each run names its tree: Pendulum's step
+    before ``envs/classic.py:fma32``, so the rule has not yet run on the
+    tree that rounds as JAX, and C20 stays open in ``golden.OPEN_FAULTS``
+    until it has. The runs the generator's episodes scored, kept beside
+    them, read p 0.0030 (experts 0.00016)."""
     from scripts import torch_seed_spread as spread
 
-    for s in range(1, 8):
-        with open(os.path.join(e2e.DEFAULT_OUT, "Pendulum-v1",
-                               f"GAIL_seed_{s}", "run.json")) as f:
+    for s in range(8):
+        run, = (glob.glob(os.path.join(e2e.DEFAULT_OUT, "Pendulum-v1", "GAIL",
+                                       "*")) if s == 0 else
+                [os.path.join(e2e.DEFAULT_OUT, "Pendulum-v1",
+                              f"GAIL_seed_{s}")])
+        with open(os.path.join(run, "run.json")) as f:
             rec = json.load(f)
         assert "H100" in rec["card"] and rec["b1_launches"] == 0
         assert (rec["expert_episodes"], rec["gail_iterations"]) == (3000, 800)
-    got = spread.gail_rule(e2e.DEFAULT_OUT,
-                           os.path.join(golden.JAX_HEAD_ROOT, "gail"))
-    assert got["seeds"] == list(range(8)) and not got["closes"]
-    assert got["mannwhitney"]["p"] < 0.05
+        assert "before" in rec["tree"] and "fma32" in rec["tree"]
+    ref = os.path.join(golden.JAX_HEAD_ROOT, "gail")
+    got = spread.gail_rule(e2e.DEFAULT_OUT, ref)
+    assert got["seeds"] == list(range(8))
+    assert got["mannwhitney"]["p"] == pytest.approx(0.1605, abs=1e-4)
+    assert got["expert"]["mannwhitney"]["p"] >= 0.05
     assert golden.OPEN_FAULTS[GATE["name"]] == "C20"
     assert GATE["name"] not in golden.STALE_REFERENCES
+    before = spread.gail_rule(os.path.join(
+        os.path.dirname(e2e.DEFAULT_OUT), "gail_generator_eval"), ref)
+    assert before["mannwhitney"]["p"] < 0.05
+    assert before["expert"]["mannwhitney"]["p"] < 0.05

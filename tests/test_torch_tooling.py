@@ -76,9 +76,13 @@ def test_evaluate_equals_jax_cartpole():
     got = evaluate(env, act, n_episodes=N_EP, draws=draws)
     assert got.shape == (N_EP,) and len(set(got.tolist())) > 1
     np.testing.assert_array_equal(got, want)       # CartPole: the lengths
-    # the port's own draws: a seeded generator, on the env's device
-    again = evaluate(env, act, n_episodes=N_EP, seed0=4)
-    np.testing.assert_array_equal(again, evaluate(env, act, N_EP, seed0=4))
+    # seed0 alone plays the JAX package's episodes
+    np.testing.assert_array_equal(evaluate(env, act, N_EP, seed0=4), want)
+    # a generator's draws, on the env's device, given as draws
+    again = evaluate(env, act, n_episodes=N_EP, draws=rollout_draws_of(
+        env, 4, N_EP))
+    np.testing.assert_array_equal(again, evaluate(
+        env, act, n_episodes=N_EP, draws=rollout_draws_of(env, 4, N_EP)))
     assert ((again >= 1) & (again <= 500)).all()
 
 
@@ -162,10 +166,10 @@ def test_rollout_trace_multi_agent_return():
     np.testing.assert_array_equal(ret, want[0])
 
 
-def rollout_draws_of(env, seed):
+def rollout_draws_of(env, seed, n=1):
     from freerl_tpu_torch.train.evaluate import rollout_draws
 
-    return rollout_draws(env, 1, env.max_steps,
+    return rollout_draws(env, n, env.max_steps,
                          torch.Generator().manual_seed(seed))
 
 
